@@ -1,0 +1,321 @@
+"""Dense GQA decoder LM — port of ``repro/models/transformer.py``.
+
+This slice ports the dense attention path: llama3_8b, granite_8b,
+minitron_4b and qwen25_32b.  MoE, Mamba, RWKV, cross-attention and
+encoder–decoder layers, the int8 KV cache, the training loss and remat
+arrive with their own slices; a config that needs them raises here.
+
+The parameters keep the JAX tree's key paths and layouts, so weights
+map 1:1 (:mod:`repro_torch.convert`): ``embed``, ``final_norm``,
+``lm_head`` and ``blocks[j]``, each leaf stacked ``[n_rep, ...]`` over
+the repeats of period position ``j``; weights are ``[in, out]`` and
+applied as ``x @ W``.  ``jax.lax.scan`` over the stacked layers is a
+Python loop over the repeats.  The parameters do not require grad: the
+port serves and does not train yet.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from . import attention as attn
+from .layers import (Initializer, apply_rope, embed, resolve_device,
+                     rms_norm, rope_frequencies, swiglu, unembed)
+
+__all__ = ["LM", "LayerSpec"]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    kind: str        # attn | mamba | rwkv
+    moe: bool
+    cross: bool
+
+
+def _lcm(*vals: int) -> int:
+    out = 1
+    for v in vals:
+        if v > 1:
+            out = out * v // math.gcd(out, v)
+    return out
+
+
+def _later_slice(cfg: ModelConfig, spec: LayerSpec) -> str | None:
+    """The port slice that brings what ``spec`` needs, or None if here."""
+    if cfg.is_encdec or spec.cross:
+        return "cross-attention / encoder-decoder"
+    if spec.kind == "rwkv":
+        return "RWKV"
+    if spec.kind == "mamba":
+        return "SSM"
+    if spec.moe:
+        return "MoE"
+    return None
+
+
+class _Tree(nn.Module):
+    """A nested dict of parameters under the JAX tree's key names."""
+
+    def __init__(self, tree: dict) -> None:
+        super().__init__()
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(name, _Tree(val))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(val, requires_grad=False))
+
+    def rep(self, r: int) -> dict:
+        """Views of repeat ``r`` of every stacked leaf, as a plain dict."""
+        out = {name: p[r] for name, p in self._parameters.items()}
+        out.update({name: m.rep(r) for name, m in self._modules.items()})
+        return out
+
+
+def _stack_into(dst: dict | None, layer: dict, r: int, n_rep: int) -> dict:
+    """Write ``layer`` into slot ``r`` of the stacked tree ``dst``."""
+    if dst is None:
+        dst = {k: (_stack_into(None, v, r, n_rep) if isinstance(v, dict)
+                   else v.new_empty((n_rep,) + tuple(v.shape)))
+               for k, v in layer.items()}
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _stack_into(dst[k], v, r, n_rep)
+        else:
+            dst[k][r].copy_(v)
+    return dst
+
+
+class LM(nn.Module):
+    """Dense decoder LM holding its parameters on ``device``.
+
+    Parameters are drawn at construction from the port's
+    :class:`Initializer` seeded with ``seed`` (load other weights with
+    :func:`repro_torch.convert.load_jax_params`).  ``attn_chunk`` is the
+    KV chunk of the CPU attention scan; ``max_seq`` sizes the RoPE table
+    that decode reads (default 8192).
+    """
+
+    def __init__(self, cfg: ModelConfig, *, param_dtype=torch.bfloat16,
+                 attn_chunk: int = 512, max_seq: int = 0, seed: int = 0,
+                 device="cuda") -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.param_dtype = param_dtype
+        self.attn_chunk = attn_chunk
+        self.max_seq = max_seq or 8192
+
+        p = _lcm(
+            cfg.attn_layer_period or 1,
+            cfg.moe_layer_period if cfg.is_moe else 1,
+            cfg.cross_attn_period or 1,
+        )
+        if cfg.n_layers % p != 0:
+            p = cfg.n_layers  # fall back to fully unrolled stack
+        self.period = p
+        self.n_rep = cfg.n_layers // p
+        self.specs = [self._spec(j) for j in range(p)]
+        for spec in self.specs:
+            later = _later_slice(cfg, spec)
+            if later:
+                raise NotImplementedError(
+                    f"{cfg.name}: {spec} layers are not ported yet; they "
+                    f"arrive with the {later} slice")
+        self._init_params(Initializer(seed, param_dtype, device))
+        # Built once here: the JAX decode_step rebuilds the same f32
+        # table for max_seq on every call.
+        self.register_buffer(
+            "cos_sin", rope_frequencies(cfg.hd, self.max_seq, cfg.rope_theta,
+                                        device), persistent=False)
+
+    def _spec(self, j: int) -> LayerSpec:
+        cfg = self.cfg
+        cross = cfg.layer_cross_attends(j) or cfg.is_encdec
+        return LayerSpec(cfg.layer_kind(j), cfg.layer_is_moe(j), cross)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ------------------------------------------------------------------ #
+    # init: the JAX ``init`` tree, drawn in the same order
+    # ------------------------------------------------------------------ #
+    def _init_layer(self, init: Initializer) -> dict:
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.hd
+        mixer = {
+            "norm": init.ones((d,)),
+            "wq": init.normal((d, cfg.n_heads * hd), fan_in=d),
+            "wk": init.normal((d, cfg.n_kv_heads * hd), fan_in=d),
+            "wv": init.normal((d, cfg.n_kv_heads * hd), fan_in=d),
+            "wo": init.normal((cfg.n_heads * hd, d), fan_in=cfg.n_heads * hd),
+        }
+        if cfg.qkv_bias:
+            mixer["bq"] = init.zeros((cfg.n_heads * hd,))
+            mixer["bk"] = init.zeros((cfg.n_kv_heads * hd,))
+            mixer["bv"] = init.zeros((cfg.n_kv_heads * hd,))
+        return {
+            "mixer": mixer,
+            "ffn_norm": init.ones((d,)),
+            "ffn": {
+                "w_gate": init.normal((d, cfg.d_ff), fan_in=d),
+                "w_up": init.normal((d, cfg.d_ff), fan_in=d),
+                "w_down": init.normal((cfg.d_ff, d), fan_in=cfg.d_ff),
+            },
+        }
+
+    def _init_params(self, init: Initializer) -> None:
+        cfg = self.cfg
+        param = lambda t: nn.Parameter(t, requires_grad=False)  # noqa: E731
+        self.embed = param(init.normal((cfg.vocab_size, cfg.d_model),
+                                       fan_in=cfg.d_model))
+        self.final_norm = param(init.ones((cfg.d_model,)))
+        if not cfg.tie_embeddings:
+            self.lm_head = param(init.normal((cfg.vocab_size, cfg.d_model),
+                                             fan_in=cfg.d_model))
+        blocks = []
+        for _ in self.specs:
+            # filled repeat by repeat: no second copy of the stack
+            stacked = None
+            for r in range(self.n_rep):
+                stacked = _stack_into(stacked, self._init_layer(init), r,
+                                      self.n_rep)
+            blocks.append(_Tree(stacked))
+        self.blocks = nn.ModuleList(blocks)
+
+    def _table(self) -> torch.Tensor:
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
+
+    # ------------------------------------------------------------------ #
+    # building blocks
+    # ------------------------------------------------------------------ #
+    def _rope(self, max_pos: int) -> torch.Tensor:
+        if max_pos <= self.cos_sin.shape[1]:
+            return self.cos_sin      # rows < max_pos equal a fresh table's
+        return rope_frequencies(self.cfg.hd, max_pos, self.cfg.rope_theta,
+                                self.device)
+
+    def _qkv(self, p: dict, h: torch.Tensor):
+        cfg = self.cfg
+        b, s, _ = h.shape
+        q = h @ p["wq"].to(h.dtype)
+        k = h @ p["wk"].to(h.dtype)
+        v = h @ p["wv"].to(h.dtype)
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(h.dtype)
+            k = k + p["bk"].to(h.dtype)
+            v = v + p["bv"].to(h.dtype)
+        return (q.reshape(b, s, cfg.n_heads, cfg.hd),
+                k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
+                v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
+
+    def _self_attn(self, p, x, cos_sin, positions):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h = rms_norm(x, p["norm"], cfg.norm_eps)
+        q, k, v = self._qkv(p, h)
+        q = apply_rope(q, cos_sin, positions)
+        k = apply_rope(k, cos_sin, positions)
+        o = attn.gqa_attention(q, k, v, causal=True, chunk=self.attn_chunk,
+                               sliding_window=cfg.sliding_window)
+        o = o.reshape(b, s, cfg.n_heads * cfg.hd)
+        return o @ p["wo"].to(x.dtype)
+
+    def _ffn(self, p, x):
+        h = rms_norm(x, p["ffn_norm"], self.cfg.norm_eps)
+        f = p["ffn"]
+        return swiglu(h, f["w_gate"].to(x.dtype), f["w_up"].to(x.dtype),
+                      f["w_down"].to(x.dtype))
+
+    def _layer_seq(self, p, x, cos_sin, positions):
+        """Full-sequence layer (prefill).  The JAX layer also returns its
+        k/v, which prefill drops; so does this one."""
+        x = x + self._self_attn(p["mixer"], x, cos_sin, positions)
+        return x + self._ffn(p, x)
+
+    # ------------------------------------------------------------------ #
+    # forward (prefill logits)
+    # ------------------------------------------------------------------ #
+    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states [B, S, d]."""
+        x = embed(self.embed, tokens).to(self.param_dtype)
+        s = x.shape[1]
+        cos_sin = self._rope(max(s, 1))
+        positions = torch.arange(s, device=x.device)[None, :]
+        # position-major like the JAX scan: every repeat of position 0,
+        # then of position 1, ...
+        for block in self.blocks:
+            for r in range(self.n_rep):
+                x = self._layer_seq(block.rep(r), x, cos_sin, positions)
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+
+    def forward(self, tokens: torch.Tensor, last_only: bool = False):
+        """Causal logits [B, S, V] (f32). tokens: [B, S] int.
+
+        ``last_only`` avoids materializing the [B, S, V] logits tensor —
+        serving prefill only needs the final position.
+        """
+        x = self.hidden_states(tokens)
+        if last_only:
+            x = x[:, -1:]
+        return unembed(x, self._table())
+
+    # ------------------------------------------------------------------ #
+    # serving: decode
+    # ------------------------------------------------------------------ #
+    def init_cache(self, bsz: int, max_len: int, dtype=None) -> list:
+        """Stacked per-position KV caches mirroring ``blocks``:
+        ``{"k", "v"}`` of ``[n_rep, bsz, max_len, Hkv, hd]`` each."""
+        cfg = self.cfg
+        dtype = dtype or self.param_dtype
+        shape = (self.n_rep, bsz, max_len, cfg.n_kv_heads, cfg.hd)
+        return [{"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+                for _ in self.specs]
+
+    def _layer_step(self, p, x, k_cache, v_cache, cos_sin, pos):
+        """One-token layer step. x: [B,1,d]; pos: [B] cursor per row.
+
+        Writes this step's k/v into ``k_cache``/``v_cache`` in place.
+        """
+        cfg = self.cfg
+        b = x.shape[0]
+        h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
+        q, k, v = self._qkv(p["mixer"], h)
+        positions = pos[:, None]
+        q = apply_rope(q, cos_sin, positions)
+        k = apply_rope(k, cos_sin, positions)
+        # dynamic_update_slice clamps the start into the cache; so does
+        # this.  The cache may be f32 under a bf16 model (ServeLoop): the
+        # value is cast to the cache's dtype, as JAX's update casts it.
+        rows = torch.arange(b, device=x.device)
+        slot = pos.clamp(0, k_cache.shape[1] - 1)
+        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        o = attn.decode_attention(q, k_cache, v_cache, pos + 1,
+                                  sliding_window=cfg.sliding_window)
+        o = o.reshape(b, 1, cfg.n_heads * cfg.hd)
+        x = x + o @ p["mixer"]["wo"].to(x.dtype)
+        return x + self._ffn(p, x)
+
+    def decode_step(self, cache: list, tokens: torch.Tensor, pos):
+        """Logits [B, 1, V] (f32) for one new token per row.
+
+        tokens: [B, 1] int; pos: int (whole batch at one cursor) or [B]
+        int tensor (continuous batching: per-slot cursors), the current
+        cache length.  Unlike the JAX function, which returns a new
+        cache, this writes ``cache`` in place and returns it.
+        """
+        x = embed(self.embed, tokens).to(self.param_dtype)
+        pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
+        for block, c in zip(self.blocks, cache):
+            for r in range(self.n_rep):
+                x = self._layer_step(block.rep(r), x, c["k"][r], c["v"][r],
+                                     self.cos_sin, pos)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return unembed(x, self._table()), cache

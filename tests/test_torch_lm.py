@@ -1,0 +1,122 @@
+"""Port parity: the dense ``LM`` on weights carried from JAX ``LM.init``.
+
+f32 on the CPU.  Logits agree with JAX to 1e-4 (the stack of matmuls
+sums in another order); the port's own decode agrees with its forward to
+2e-3, the bar of ``tests/test_archs_smoke.py::test_decode_matches_forward``.
+"""
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import LM as JaxLM
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import flatten_tree, load_jax_params, to_numpy_tree
+from repro_torch.models import LM
+
+_CFGS = {
+    "llama3_8b": get_smoke_config("llama3_8b"),
+    # deeper and narrower: 3 layers, MQA, hd 32
+    "llama3_8b_deep_mqa": replace(get_smoke_config("llama3_8b"), n_layers=3,
+                                  n_heads=2, n_kv_heads=1),
+    "qwen25_32b": get_smoke_config("qwen25_32b"),      # qkv bias, 5:1, hd 16
+}
+
+
+def _pair(name, max_seq=32):
+    cfg = _CFGS[name]
+    jm = JaxLM(cfg, param_dtype=jnp.float32, attn_chunk=8, max_seq=max_seq)
+    tree = jax.tree.map(np.asarray, jm.init(0))
+    tm = LM(cfg, param_dtype=torch.float32, attn_chunk=8, max_seq=max_seq,
+            device="cpu")
+    load_jax_params(tm, tree)
+    return cfg, jm, jax.tree.map(jnp.asarray, tree), tm, tree
+
+
+def _tokens(cfg, bsz=2, seq=12, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, seq))
+
+
+def test_configs_are_copies():
+    for arch in ("llama3_8b", "qwen25_32b", "granite_8b", "minitron_4b"):
+        assert get_smoke_config(arch).__dict__ == jax_smoke_config(arch).__dict__
+
+
+@pytest.mark.parametrize("name", sorted(_CFGS))
+def test_param_round_trip_is_bit_exact(name):
+    *_, tm, tree = _pair(name)
+    back = flatten_tree(to_numpy_tree(tm))
+    leaves = flatten_tree(tree)
+    assert back.keys() == leaves.keys()
+    for key, arr in leaves.items():
+        assert back[key].dtype == arr.dtype and np.array_equal(back[key], arr), key
+
+
+@pytest.mark.parametrize("name", sorted(_CFGS))
+def test_forward_matches_jax(name):
+    cfg, jm, jparams, tm, _ = _pair(name)
+    tokens = _tokens(cfg)
+    ref, _ = jm.forward(jparams, jnp.asarray(tokens, jnp.int32))
+    with torch.no_grad():
+        out = tm(torch.from_numpy(tokens))
+        last = tm(torch.from_numpy(tokens), last_only=True)
+    assert out.shape == (2, 12, cfg.vocab_size) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(last.numpy(), np.asarray(ref)[:, -1:],
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(_CFGS))
+def test_decode_matches_jax_and_forward(name):
+    cfg, jm, jparams, tm, _ = _pair(name)
+    tokens = _tokens(cfg)
+    jstep = jax.jit(jm.decode_step)
+    jcache = jm.init_cache(2, 32, dtype=jnp.float32)
+    tcache = tm.init_cache(2, 32, dtype=torch.float32)
+    with torch.no_grad():
+        fwd = tm(torch.from_numpy(tokens))
+        for t in range(tokens.shape[1]):
+            tok = tokens[:, t:t + 1]
+            ref, jcache = jstep(jparams, jcache, jnp.asarray(tok, jnp.int32), t)
+            out, tcache = tm.decode_step(tcache, torch.from_numpy(tok), t)
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                       atol=1e-4, rtol=1e-4, err_msg=f"t={t}")
+            err = float((out[:, 0] - fwd[:, t]).abs().max())
+            assert err < 2e-3, f"t={t}: {err}"
+
+
+def test_decode_with_per_slot_positions_matches_jax():
+    cfg, jm, jparams, tm, _ = _pair("llama3_8b")
+    tokens = _tokens(cfg, bsz=3, seq=4, seed=2)
+    pos = np.array([0, 5, 9], np.int32)
+    jstep = jax.jit(jm.decode_step)
+    jcache = jm.init_cache(3, 16, dtype=jnp.float32)
+    tcache = tm.init_cache(3, 16, dtype=torch.float32)
+    with torch.no_grad():
+        for t in range(tokens.shape[1]):
+            tok = tokens[:, t:t + 1]
+            ref, jcache = jstep(jparams, jcache, jnp.asarray(tok, jnp.int32),
+                                jnp.asarray(pos + t))
+            out, tcache = tm.decode_step(tcache, torch.from_numpy(tok),
+                                         torch.from_numpy(pos + t))
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                       atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(tcache[0]["k"].numpy(),
+                               np.asarray(jcache[0]["k"]), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("change,slice_name", [
+    (dict(n_experts=4, experts_per_token=2), "MoE"),
+    (dict(attention_free=True), "RWKV"),
+    (dict(attn_layer_period=2), "SSM"),
+    (dict(cross_attn_period=2, frontend_tokens=4, frontend_dim=64),
+     "cross-attention"),
+])
+def test_unported_layer_kinds_raise(change, slice_name):
+    cfg = replace(get_smoke_config("llama3_8b"), **change)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        LM(cfg, param_dtype=torch.float32, device="cpu")
