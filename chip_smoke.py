@@ -3,26 +3,42 @@
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.  It
 needs one CUDA card and ``nvcc``; without a card it exits 1 and prints no
-result.  Phases, each printing one JSON line and each ending the run with
+result.  Phases, each printing JSON lines and each ending the run with
 a non-zero exit if it fails:
 
 0. env         card name and power limit (nvidia-smi), torch/CUDA/nvcc versions
-1. build       the kernel library from ``src/repro_torch/kernels/csrc``
+1. build       every kernel library from ``src/repro_torch/kernels/csrc``, one
+               ``nvcc`` per source, all started together; ptxas registers
+               and spills of each
 2. kernel      ``flash_attention_bhsd`` vs its plain version on the card, f32
                and bf16, causal both ways, at the test shapes, a ragged S=1000
                and every shape the later phases give it; at S >= 256 also a
                planted fault (one V tile zeroed) that the limit must reject;
                times at the one-layer prefill shape
-3. prefill     full llama3_8b (32 layers, bf16, seeded random weights):
+3. wkv         ``wkv_bhsd`` vs its plain version, out and state, f32 and bf16
+               r/k/v with f32 w, two laws of w, nonzero s0, at the test
+               shapes, a ragged S=1000 and every prefill and decode shape
+               the RWKV phases give it (serve.main's 2 x 256 included); at
+               S >= 256 a planted fault (one step's k v^T update dropped);
+               one 4096 call against two 2048 calls with the state carried;
+               times at the one-layer prefill shape
+4. prefill     full llama3_8b (32 layers, bf16, seeded random weights):
                ``prefill`` on 2 x 4096 tokens, 32 kernel launches per call
-4. consistency full width, 4 layers, f32 (TF32 off): prefill logits through
+5. consistency full width, 4 layers, f32 (TF32 off): prefill logits through
                the kernel vs decode logits through plain ``decode_attention``
-5. serve       ``ServeLoop(slots=4, max_len=256)`` answering 8 requests on
+6. serve       ``ServeLoop(slots=4, max_len=256)`` answering 8 requests on
                full llama3_8b; a torch.profiler window over one prefill
                call and one decode step; then ``serve.main(["--production",
-               ...])`` end to end — the main path whose kernel launches
+               ...])`` end to end — llama's main path, whose flash launches
                are counted
-6. kernels     the card's nvidia-smi line again, one JSON line listing every
+7. rwkv        full rwkv6_1b6 (24 layers, bf16, seeded random weights):
+               ``prefill`` on 2 x 4096 tokens, 24 WKV launches per call; full
+               width, 4 layers, f32: prefill logits vs decode logits, both
+               through the kernel; a profiler window over one prefill call
+               and one decode step; ``serve.main(["--arch", "rwkv6_1b6",
+               "--production", ...])`` — RWKV's main path, whose WKV
+               launches are counted
+8. kernels     the card's nvidia-smi line again, one JSON line listing every
                ported kernel, and the final ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -32,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -44,10 +61,14 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models.rwkv import wkv_chunked  # noqa: E402
 from repro_torch.runtime import Request, ServeLoop  # noqa: E402
 
-# the module; the package's ``flash_attention`` is the layout wrapper
+# the modules; the package's ``flash_attention`` and ``rwkv_wkv`` are the
+# layout wrappers
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
+wkv = importlib.import_module("repro_torch.kernels.rwkv_wkv")
+KERNEL_SOURCES = ("flash_attention", "rwkv_wkv")
 SEED = 0
 # H100 SXM data sheet, dense: bf16 tensor cores, f32 on the CUDA cores, HBM3
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -73,6 +94,30 @@ KERNEL_SHAPES = [
 # noise near zero.  A limit that does not scale with the output would let
 # a dropped tile through at S=4096, where |output| is about 0.03.
 TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-5, 2.0 ** -7)}
+
+# WKV shapes (b, s, h, hd): the JAX kernel tests', a ragged S at the
+# rwkv6_1b6 heads, and what the RWKV phases give the kernel
+WKV_MAIN = (2, 4096, 32, 64)        # one rwkv6_1b6 prefill layer of phase 7
+RWKV_MAIN_PATH = (2, 256, 16)       # batch, prompt length, new tokens
+RWKV_CONSISTENCY = (2, 80)          # batch, length of the 4-layer f32 check
+WKV_SHAPES = [(1, 16, 1, 8), (2, 32, 2, 16), (1, 64, 4, 64), (2, 24, 2, 32),
+              (1, 1000, 32, 64),
+              WKV_MAIN,
+              (*RWKV_MAIN_PATH[:2], 32, 64),  # serve.main's prefill
+              (*RWKV_CONSISTENCY, 32, 64),    # the 4-layer f32 prefill
+              (2, 1, 32, 64), (4, 1, 32, 64)]  # decode steps of batch 2 and 4
+# (atol, rtol) of kernel vs plain.  out: the kernel sums the hd = 64
+# products r_i (S_ij + u_i k_i v_j) in a chain of FMAs, the plain version
+# in a batched matmul, in another order.  Once the state is in steady
+# state the partial sums reach about 25, so the two f32 results differ
+# by about 2**-24 * sqrt(2 * sum of squared partial sums) ~ 1e-5 (one
+# standard deviation), whatever |out| is: the atol of 2e-4 is 20 of them,
+# and rtol 1e-5 is tests/test_kernels.py's f32 bar.  bf16 out: both sides
+# round that f32 value once to bf16, so they differ by at most one bf16
+# ulp (at most 2**-7 of |plain|) plus the same f32 noise.  The state is
+# f32 in both cases; its update has no sum, so it keeps 1e-5.
+WKV_TOL = {"f32": (2e-4, 1e-5), "bf16": (2e-4, 2.0 ** -7)}
+WKV_STATE_TOL = (1e-5, 1e-5)
 
 
 def emit(phase: str, **fields) -> None:
@@ -126,11 +171,14 @@ def phase_env() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    log = _build.build("flash_attention")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        logs = list(pool.map(_build.build, KERNEL_SOURCES))   # raises if nvcc failed
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=secs, built=bool(log), ptxas=ptxas)
+    for name, log in zip(KERNEL_SOURCES, logs):
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "entry function" in ln or "registers" in ln or "spill" in ln]
+        emit("build", kernel=name, built=bool(log), ptxas=ptxas)
+    emit("build", seconds=secs, kernels=list(KERNEL_SOURCES))
 
 
 def planted_fault(q, k, v, causal):
@@ -197,6 +245,124 @@ def phase_kernel() -> tuple[dict, list]:
                       f"the limit lets a zeroed V tile through: {row}")
             del q, k, v, out, ref
     return timed, rows
+
+
+def wkv_inputs(b, s, h, hd, dtype, w_law, gen):
+    """r/k/v/w [B,H,S,hd], u [H,hd], s0 [B,H,hd,hd] f32 on the card.
+
+    ``dtype`` "f32": all f32; "bf16": bf16 r/k/v/u with f32 w and s0, the
+    model's mix.  w is drawn per element, by the JAX kernel tests' law
+    ("uniform": U(0.2, 0.95)) or the model's ("model":
+    exp(-min(exp(N(0,1)), 8)))."""
+    shape = (b, h, s, hd)
+    io = torch.float32 if dtype == "f32" else torch.bfloat16
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(io) for _ in range(3))
+    if w_law == "uniform":
+        w = 0.2 + 0.75 * torch.rand(shape, generator=gen, device="cuda")
+    else:
+        w = torch.exp(-torch.randn(shape, generator=gen, device="cuda").exp().clamp(max=8.0))
+    u = torch.randn((h, hd), generator=gen, device="cuda").to(io)
+    s0 = torch.randn((b, h, hd, hd), generator=gen, device="cuda")
+    return r, k, v, w, u, s0
+
+
+def planted_wkv_fault(r, k, v, w, u, s0):
+    """The plain version with the k_t v_t^T update of one late step t0
+    dropped: what a kernel that loses one rank-1 update would return.
+    out_t0 itself is right; every later output misses that term."""
+    s = r.shape[2]
+    t0 = 3 * s // 4
+    part = lambda a, b, st: wkv.wkv_bhsd_plain(  # noqa: E731
+        *(x[:, :, a:b] for x in (r, k, v, w)), u, st)
+    o1, st = part(0, t0, s0)
+    o2, _ = part(t0, t0 + 1, st)
+    st = st * w[:, :, t0, :, None].float()
+    o3, _ = part(t0 + 1, s, st)
+    return torch.cat([o1, o2, o3], dim=2)
+
+
+def wkv_bound_ms(b, h, s, hd, io_bytes, w_bytes) -> tuple[float, str]:
+    """Least time for the work: 5 hd^2 f32 operations per (b, h, t) on the
+    CUDA cores (r.S is hd^2 FMAs; the update one multiply and one FMA per
+    element), or r/k/v/w/u/s0 read once and out/sT written once over HBM."""
+    t_ops = 5 * hd * hd * b * h * s / PEAK_FLOPS["f32"]
+    t_bytes = (b * h * s * hd * (4 * io_bytes + w_bytes) + h * hd * io_bytes
+               + 2 * b * h * hd * hd * 4) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_wkv() -> tuple[dict, list]:
+    """WKV kernel vs plain at every shape, dtype and law of w; state
+    carried across two calls; times at the one-layer prefill shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    timed, rows = {}, []
+    for b, s, h, hd in WKV_SHAPES:
+        for dtype in ("f32", "bf16"):
+            for w_law in ("uniform", "model"):
+                args = wkv_inputs(b, s, h, hd, dtype, w_law, gen)
+                out, sT = wkv.wkv_bhsd(*args)
+                ref, sT_ref = wkv.wkv_bhsd_plain(*args)
+                torch.cuda.synchronize()
+                out, ref = out.float(), ref.float()
+                atol, rtol = WKV_TOL[dtype]
+                satol, srtol = WKV_STATE_TOL
+                row = dict(shape=[b, s, h, hd], dtype=dtype, w_law=w_law,
+                           max_abs_err=float((out - ref).abs().max()),
+                           state_max_abs_err=float((sT - sT_ref).abs().max()),
+                           atol=atol, rtol=rtol,
+                           limit_ratio=limit_ratio(out, ref, atol, rtol),
+                           state_limit_ratio=limit_ratio(sT, sT_ref, satol, srtol))
+                row["ok"] = row["limit_ratio"] <= 1 and row["state_limit_ratio"] <= 1
+                if s >= 256:
+                    bad = planted_wkv_fault(*args).float()
+                    row["fault_max_abs_err"] = float((bad - ref).abs().max())
+                    row["fault_limit_ratio"] = limit_ratio(bad, ref, atol, rtol)
+                    row["fault_rejected"] = row["fault_limit_ratio"] > 1
+                    del bad
+                if (b, s, h, hd) == WKV_MAIN and w_law == "model":
+                    half = s // 2
+                    sl = lambda a, c: [x[:, :, a:c].contiguous()  # noqa: E731
+                                       for x in args[:4]]
+                    o1, s_mid = wkv.wkv_bhsd(*sl(0, half), args[4], args[5])
+                    o2, s_end = wkv.wkv_bhsd(*sl(half, s), args[4], s_mid)
+                    two = torch.cat([o1, o2], dim=2).float()
+                    row["two_calls_max_abs_err"] = float((two - out).abs().max())
+                    row["two_calls_state_max_abs_err"] = float((s_end - sT).abs().max())
+                    row["two_calls_bit_equal"] = bool(torch.equal(two, out)
+                                                      and torch.equal(s_end, sT))
+                    row["two_calls_ok"] = (limit_ratio(two, out, atol, rtol) <= 1 and
+                                           limit_ratio(s_end, sT, satol, srtol) <= 1)
+                    del o1, o2, two
+                    if dtype == "bf16":
+                        row.update(wkv_times(args))
+                    timed[dtype] = row
+                emit("wkv", **row)
+                rows.append(row)
+                check(row["ok"], f"wkv_bhsd disagrees with its plain version: {row}")
+                check(row.get("fault_rejected", True),
+                      f"the limit lets a dropped k v^T update through: {row}")
+                check(row.get("two_calls_ok", True),
+                      f"two calls with the state carried differ from one: {row}")
+                del args, out, ref, sT, sT_ref
+    return timed, rows
+
+
+def wkv_times(args) -> dict:
+    """Kernel, plain version and the port's torch-only chunked form at
+    the shape of ``args``; bound from this shape's work."""
+    r, k, v, w, u, s0 = args
+    b, h, s, hd = r.shape
+    row = dict(kernel_ms=time_ms(lambda: wkv.wkv_bhsd(*args), 20),
+               plain_ms=time_ms(lambda: wkv.wkv_bhsd_plain(*args), 2))
+    # for later PRs: the port's torch-only chunked form (the JAX model's
+    # prefill formulation) at the same shape, in its model layout.  Not a
+    # library call and not used on the card: no PyTorch call computes WKV.
+    tr = [x.transpose(1, 2).contiguous() for x in (r, k, v, w)]
+    row["torch_chunked_ms"] = time_ms(lambda: wkv_chunked(*tr, u, s0, chunk=16), 3)
+    row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = wkv_bound_ms(
+        b, h, s, hd, r.element_size(), w.element_size())
+    return row
 
 
 def phase_prefill(model) -> dict:
@@ -334,20 +500,124 @@ def phase_profile(model) -> None:
              **profile_window(step, 10))
 
 
+def reset_launches() -> None:
+    fa.flash_attention_bhsd.launches = 0
+    wkv.wkv_bhsd.launches = 0
+
+
 def phase_main_path() -> int:
     """``serve.main --production``: prefill then greedy decode on the card."""
     argv = ["--arch", "llama3_8b", "--production", "--batch", str(MAIN_PATH[0]),
             "--prompt-len", str(MAIN_PATH[1]), "--tokens", "16"]
-    fa.flash_attention_bhsd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     rc = serve.main(argv)
     torch.cuda.synchronize()
     launches = fa.flash_attention_bhsd.launches
     emit("serve_main", argv=argv, rc=rc, seconds=time.perf_counter() - t0,
-         kernel_launches=launches)
+         kernel_launches=launches, wkv_launches=wkv.wkv_bhsd.launches)
     check(rc == 0, f"serve.main exited {rc}")
     want = get_config("llama3_8b").n_layers    # one launch per layer, one prefill
     check(launches == want, f"{launches} kernel launches on the main path, want {want}")
+    check(wkv.wkv_bhsd.launches == 0, "the llama path launched the WKV kernel")
+    return launches
+
+
+def phase_rwkv_prefill(model, wkv_ms: float) -> dict:
+    """Full rwkv6_1b6 prefill: one WKV launch per layer; ``wkv_ms`` is
+    phase 3's kernel time at this call's one-layer shape."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    b, s = PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launches, secs = [], []
+    for _ in range(2):          # the first call also warms cuBLAS up
+        wkv.wkv_bhsd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = serve.prefill(model, tokens)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(wkv.wkv_bhsd.launches)
+        check(tuple(logits.shape) == (b, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "rwkv prefill logits are not finite")
+        check(launches[-1] == cfg.n_layers,
+              f"{launches[-1]} WKV launches in one prefill, want {cfg.n_layers}")
+    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, dtype="bf16",
+               launches_per_call=launches, seconds=secs,
+               tokens_per_s=b * s / secs[-1],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               wkv_kernel_ms_per_layer=wkv_ms,
+               wkv_share=wkv_ms * cfg.n_layers / 1e3 / secs[-1])
+    emit("rwkv_prefill", **row)
+    return row
+
+
+def phase_rwkv_consistency(cfg_full) -> None:
+    """Prefill logits through the kernel vs decode logits through its
+    S = 1 steps, at every position: full width, 4 layers, f32."""
+    cfg = replace(cfg_full, n_layers=4)
+    b, s = RWKV_CONSISTENCY
+    model = LM(cfg, param_dtype=torch.float32, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    wkv.wkv_bhsd.launches = 0
+    last = serve.prefill(model, tokens)
+    check(wkv.wkv_bhsd.launches == cfg.n_layers, "rwkv prefill missed the kernel")
+    with torch.no_grad():
+        full = model(tokens)
+        wkv.wkv_bhsd.launches = 0
+        cache = model.init_cache(b, s, dtype=torch.float32)
+        worst = 0.0
+        for t in range(s):
+            logits, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+            worst = max(worst, float((logits[:, 0] - full[:, t]).abs().max()))
+    decode_launches = wkv.wkv_bhsd.launches
+    err_last = float((logits[:, 0] - last).abs().max())
+    emit("rwkv_consistency", layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s,
+         dtype="f32", max_abs_err_last=err_last, max_abs_err_all_positions=worst,
+         decode_launches=decode_launches, tol=2e-3)
+    check(decode_launches == cfg.n_layers * s, "rwkv decode missed the kernel")
+    check(err_last < 2e-3 and worst < 2e-3,
+          f"rwkv prefill vs decode logits differ: last {err_last}, all {worst}")
+    del model, cache, full
+
+
+def phase_rwkv_profile(model) -> None:
+    """Where the time goes in one rwkv6_1b6 prefill call and one decode
+    step of batch 4."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
+    emit("rwkv_profile", step="prefill", batch=PREFILL[0], seq=PREFILL[1],
+         **profile_window(lambda: serve.prefill(model, tokens), 1))
+    cache = model.init_cache(4, 1, dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen, device="cuda")
+    with torch.no_grad():
+        step = lambda: model.decode_step(cache, tok, 0)  # noqa: E731
+        emit("rwkv_profile", step="decode", batch=4, **profile_window(step, 10))
+
+
+def phase_rwkv_main_path() -> int:
+    """``serve.main --arch rwkv6_1b6 --production``: one WKV launch per
+    layer for the prefill, and one per layer for each of the prompt's
+    teacher-forced decode steps and each new token."""
+    batch, plen, new = RWKV_MAIN_PATH
+    argv = ["--arch", "rwkv6_1b6", "--production", "--batch", str(batch),
+            "--prompt-len", str(plen), "--tokens", str(new)]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = wkv.wkv_bhsd.launches
+    emit("rwkv_serve_main", argv=argv, rc=rc, seconds=time.perf_counter() - t0,
+         kernel_launches=launches, flash_launches=fa.flash_attention_bhsd.launches)
+    check(rc == 0, f"serve.main exited {rc}")
+    n_layers = get_config("rwkv6_1b6").n_layers
+    want = n_layers + n_layers * (plen + new)
+    check(launches == want, f"{launches} WKV launches on the RWKV main path, want {want}")
+    check(fa.flash_attention_bhsd.launches == 0, "the RWKV path launched flash attention")
     return launches
 
 
@@ -361,6 +631,7 @@ def main() -> int:
     print(smi, flush=True)
     phase_build()
     timed, checks = phase_kernel()
+    wkv_timed, wkv_checks = phase_wkv()
 
     cfg = get_config("llama3_8b")
     model = LM(cfg, seed=SEED, device="cuda")        # bf16, full depth
@@ -371,6 +642,16 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     launches = phase_main_path()
+
+    rwkv_cfg = get_config("rwkv6_1b6")
+    model = LM(rwkv_cfg, seed=SEED, device="cuda")   # bf16, full depth
+    phase_rwkv_prefill(model, wkv_timed["bf16"]["kernel_ms"])
+    phase_rwkv_profile(model)
+    del model
+    torch.cuda.empty_cache()
+    phase_rwkv_consistency(rwkv_cfg)
+    torch.cuda.empty_cache()
+    wkv_launches = phase_rwkv_main_path()
 
     main_row = timed["bf16"]
     kernels = [{
@@ -397,6 +678,34 @@ def main() -> int:
         "dtype": "bf16",
         "f32": {k: timed["f32"][k] for k in
                 ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+    }, {
+        "name": "wkv_bhsd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv_wkv.py:61",
+        "launches": wkv_launches,
+        # worst over every shape, dtype and law of w of phase 3
+        "max_abs_err": max(r["max_abs_err"] for r in wkv_checks),
+        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in wkv_checks
+                                        if r["dtype"] == d) for d in WKV_TOL},
+        "state_max_abs_err": max(r["state_max_abs_err"] for r in wkv_checks),
+        "tol": {d: {"atol": a, "rtol": r} for d, (a, r) in WKV_TOL.items()},
+        "state_tol": {"atol": WKV_STATE_TOL[0], "rtol": WKV_STATE_TOL[1]},
+        "limit_ratio": max(r["limit_ratio"] for r in wkv_checks),
+        "state_limit_ratio": max(r["state_limit_ratio"] for r in wkv_checks),
+        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in wkv_checks
+                                     if "fault_limit_ratio" in r),
+        "two_calls_bit_equal": all(r["two_calls_bit_equal"] for r in wkv_checks
+                                   if "two_calls_bit_equal" in r),
+        "checked_shapes": [list(sh) for sh in WKV_SHAPES],
+        "ms": wkv_timed["bf16"]["kernel_ms"],
+        "plain_ms": wkv_timed["bf16"]["plain_ms"],
+        "bound_ms": wkv_timed["bf16"]["bound_ms"],
+        "bound_by": wkv_timed["bf16"]["bound_by"],
+        "library_ms": None,          # no PyTorch call computes WKV
+        "torch_chunked_ms": wkv_timed["bf16"]["torch_chunked_ms"],
+        "shape": list(WKV_MAIN),
+        "dtype": "bf16 r/k/v/out, f32 w",
     }]
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

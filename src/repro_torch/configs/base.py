@@ -2,8 +2,9 @@
 
 The port's own copy of ``ModelConfig``, ``get_config`` and
 ``get_smoke_config`` from the JAX package's ``configs/base.py``: the
-port imports nothing of that package.  Only the dense decoders that the
-port runs are listed; the other architectures arrive with their slices.
+port imports nothing of that package.  Only the architectures that the
+port runs are listed (the dense decoders and RWKV6); the others arrive
+with their slices.
 Each module defines ``CONFIG`` (published dims) and ``smoke_config()``
 (a reduced same-family variant for CPU tests).
 """
@@ -167,6 +168,7 @@ ARCH_IDS = (
     "granite_8b",
     "qwen25_32b",
     "llama3_8b",
+    "rwkv6_1b6",
 )
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -175,6 +177,7 @@ _ALIASES.update({
     "granite-8b": "granite_8b",
     "qwen2.5-32b": "qwen25_32b",
     "llama3-8b": "llama3_8b",
+    "rwkv6-1.6b": "rwkv6_1b6",
 })
 
 

@@ -1,13 +1,15 @@
-"""Plain-torch oracle for the attention kernel — port of
-``repro/kernels/ref.py::reference_attention``.  It is also the Hopper
-kernel's plain version (``flash_attention_bhsd_plain``), so the port
-keeps one plain attention, not two.  The WKV oracle arrives with the
-RWKV slice."""
+"""Plain-torch oracles for the kernels — port of ``repro/kernels/ref.py``.
+
+:func:`reference_attention` and :func:`reference_wkv` are also the
+Hopper kernels' plain versions (``flash_attention_bhsd_plain``,
+``wkv_bhsd_plain``), so the port keeps one plain attention and one plain
+WKV, not two of each."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["check_attention_shapes", "reference_attention"]
+__all__ = ["check_attention_shapes", "check_wkv_shapes",
+           "reference_attention", "reference_wkv"]
 
 _NEG_INF = -1e30
 
@@ -46,3 +48,44 @@ def reference_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
         scores = scores.masked_fill(~mask, _NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return (p @ v.float()[:, None]).reshape(bh, s, hd).to(q.dtype)
+
+
+def check_wkv_shapes(r, k, v, w, u, s0) -> None:
+    """Raise unless r/k/v/w are ``[B,H,S,hd]``, u ``[H,hd]`` and s0
+    ``[B,H,hd,hd]``, with r, k, v of one dtype (w keeps its own)."""
+    if r.dim() != 4:
+        raise ValueError(f"WKV takes 4-D r/k/v/w [B,H,S,hd]; got r {tuple(r.shape)}")
+    b, h, _, hd = r.shape
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match r {tuple(r.shape)}")
+    if tuple(u.shape) != (h, hd):
+        raise ValueError(f"u {tuple(u.shape)} is not [H, hd] = {(h, hd)}")
+    if tuple(s0.shape) != (b, h, hd, hd):
+        raise ValueError(f"s0 {tuple(s0.shape)} is not [B, H, hd, hd] = {(b, h, hd, hd)}")
+    if not (r.dtype == k.dtype == v.dtype):
+        raise ValueError(f"dtypes of r, k, v differ: {r.dtype}, {k.dtype}, {v.dtype}")
+
+
+def reference_wkv(r, k, v, w, u, s0):
+    """Sequential WKV oracle. r/k/v/w [B,H,S,hd]; u [H,hd]; s0 [B,H,hd,hd].
+
+    Per (b, h) and step t, with the f32 state ``S[key i, value j]``::
+
+        out_t = r_t · (S + (u ⊙ k_t) v_tᵀ)
+        S     = diag(w_t) · S + k_t v_tᵀ
+
+    Every input is upcast to f32; returns (out in ``r.dtype``, the final
+    state in f32).
+    """
+    check_wkv_shapes(r, k, v, w, u, s0)
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = s0.float()
+    outs = []
+    for t in range(r.shape[2]):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], state + uf * kv))
+        state = state * wf[:, :, t, :, None] + kv
+    out = torch.stack(outs, dim=2) if outs else rf.new_empty(r.shape)
+    return out.to(r.dtype), state

@@ -1,9 +1,10 @@
-"""Dense GQA decoder LM — port of ``repro/models/transformer.py``.
+"""Decoder LM — port of ``repro/models/transformer.py``.
 
-This slice ports the dense attention path: llama3_8b, granite_8b,
-minitron_4b and qwen25_32b.  MoE, Mamba, RWKV, cross-attention and
-encoder–decoder layers, the int8 KV cache, the training loss and remat
-arrive with their own slices; a config that needs them raises here.
+The port has the dense attention path (llama3_8b, granite_8b,
+minitron_4b, qwen25_32b) and the attention-free RWKV6 path
+(rwkv6_1b6).  MoE, Mamba, cross-attention and encoder–decoder layers,
+the int8 KV cache, the training loss and remat arrive with their own
+slices; a config that needs them raises here.
 
 The parameters keep the JAX tree's key paths and layouts, so weights
 map 1:1 (:mod:`repro_torch.convert`): ``embed``, ``final_norm``,
@@ -23,6 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
+from . import rwkv as rwkv_mod
 from .layers import (Initializer, apply_rope, embed, resolve_device,
                      rms_norm, rope_frequencies, swiglu, unembed)
 
@@ -48,8 +50,6 @@ def _later_slice(cfg: ModelConfig, spec: LayerSpec) -> str | None:
     """The port slice that brings what ``spec`` needs, or None if here."""
     if cfg.is_encdec or spec.cross:
         return "cross-attention / encoder-decoder"
-    if spec.kind == "rwkv":
-        return "RWKV"
     if spec.kind == "mamba":
         return "SSM"
     if spec.moe:
@@ -91,17 +91,20 @@ def _stack_into(dst: dict | None, layer: dict, r: int, n_rep: int) -> dict:
 
 
 class LM(nn.Module):
-    """Dense decoder LM holding its parameters on ``device``.
+    """Decoder LM holding its parameters on ``device``.
 
     Parameters are drawn at construction from the port's
     :class:`Initializer` seeded with ``seed`` (load other weights with
     :func:`repro_torch.convert.load_jax_params`).  ``attn_chunk`` is the
-    KV chunk of the CPU attention scan; ``max_seq`` sizes the RoPE table
-    that decode reads (default 8192).
+    KV chunk of the CPU attention scan and ``rwkv_chunk`` the chunk of
+    the CPU WKV (:func:`repro_torch.models.rwkv.wkv_chunked`); on the
+    card both run kernels.  ``max_seq`` sizes the RoPE table that decode
+    reads (default 8192).
     """
 
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.bfloat16,
-                 attn_chunk: int = 512, max_seq: int = 0, seed: int = 0,
+                 attn_chunk: int = 512, max_seq: int = 0,
+                 rwkv_chunk: int = 16, seed: int = 0,
                  device="cuda") -> None:
         super().__init__()
         device = resolve_device(device)
@@ -109,6 +112,7 @@ class LM(nn.Module):
         self.param_dtype = param_dtype
         self.attn_chunk = attn_chunk
         self.max_seq = max_seq or 8192
+        self.rwkv_chunk = rwkv_chunk
 
         p = _lcm(
             cfg.attn_layer_period or 1,
@@ -145,9 +149,12 @@ class LM(nn.Module):
     # ------------------------------------------------------------------ #
     # init: the JAX ``init`` tree, drawn in the same order
     # ------------------------------------------------------------------ #
-    def _init_layer(self, init: Initializer) -> dict:
+    def _init_mixer(self, init: Initializer, spec: LayerSpec) -> dict:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.hd
+        if spec.kind == "rwkv":
+            return {"norm": init.ones((d,)),
+                    **rwkv_mod.init_rwkv(init, d, cfg.n_heads, hd)}
         mixer = {
             "norm": init.ones((d,)),
             "wq": init.normal((d, cfg.n_heads * hd), fan_in=d),
@@ -159,8 +166,13 @@ class LM(nn.Module):
             mixer["bq"] = init.zeros((cfg.n_heads * hd,))
             mixer["bk"] = init.zeros((cfg.n_kv_heads * hd,))
             mixer["bv"] = init.zeros((cfg.n_kv_heads * hd,))
+        return mixer
+
+    def _init_layer(self, init: Initializer, spec: LayerSpec) -> dict:
+        cfg = self.cfg
+        d = cfg.d_model
         return {
-            "mixer": mixer,
+            "mixer": self._init_mixer(init, spec),
             "ffn_norm": init.ones((d,)),
             "ffn": {
                 "w_gate": init.normal((d, cfg.d_ff), fan_in=d),
@@ -179,12 +191,12 @@ class LM(nn.Module):
             self.lm_head = param(init.normal((cfg.vocab_size, cfg.d_model),
                                              fan_in=cfg.d_model))
         blocks = []
-        for _ in self.specs:
+        for spec in self.specs:
             # filled repeat by repeat: no second copy of the stack
             stacked = None
             for r in range(self.n_rep):
-                stacked = _stack_into(stacked, self._init_layer(init), r,
-                                      self.n_rep)
+                stacked = _stack_into(stacked, self._init_layer(init, spec),
+                                      r, self.n_rep)
             blocks.append(_Tree(stacked))
         self.blocks = nn.ModuleList(blocks)
 
@@ -232,10 +244,16 @@ class LM(nn.Module):
         return swiglu(h, f["w_gate"].to(x.dtype), f["w_up"].to(x.dtype),
                       f["w_down"].to(x.dtype))
 
-    def _layer_seq(self, p, x, cos_sin, positions):
+    def _layer_seq(self, p, spec, x, cos_sin, positions):
         """Full-sequence layer (prefill).  The JAX layer also returns its
         k/v, which prefill drops; so does this one."""
-        x = x + self._self_attn(p["mixer"], x, cos_sin, positions)
+        cfg = self.cfg
+        if spec.kind == "rwkv":
+            h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
+            x = x + rwkv_mod.rwkv_seq(p["mixer"], h, cfg.n_heads, cfg.hd,
+                                      cfg.norm_eps, chunk=self.rwkv_chunk)
+        else:
+            x = x + self._self_attn(p["mixer"], x, cos_sin, positions)
         return x + self._ffn(p, x)
 
     # ------------------------------------------------------------------ #
@@ -249,9 +267,9 @@ class LM(nn.Module):
         positions = torch.arange(s, device=x.device)[None, :]
         # position-major like the JAX scan: every repeat of position 0,
         # then of position 1, ...
-        for block in self.blocks:
+        for spec, block in zip(self.specs, self.blocks):
             for r in range(self.n_rep):
-                x = self._layer_seq(block.rep(r), x, cos_sin, positions)
+                x = self._layer_seq(block.rep(r), spec, x, cos_sin, positions)
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor, last_only: bool = False):
@@ -269,21 +287,47 @@ class LM(nn.Module):
     # serving: decode
     # ------------------------------------------------------------------ #
     def init_cache(self, bsz: int, max_len: int, dtype=None) -> list:
-        """Stacked per-position KV caches mirroring ``blocks``:
-        ``{"k", "v"}`` of ``[n_rep, bsz, max_len, Hkv, hd]`` each."""
-        cfg = self.cfg
-        dtype = dtype or self.param_dtype
-        shape = (self.n_rep, bsz, max_len, cfg.n_kv_heads, cfg.hd)
-        return [{"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-                for _ in self.specs]
+        """Stacked per-position caches mirroring ``blocks``.
 
-    def _layer_step(self, p, x, k_cache, v_cache, cos_sin, pos):
-        """One-token layer step. x: [B,1,d]; pos: [B] cursor per row.
-
-        Writes this step's k/v into ``k_cache``/``v_cache`` in place.
+        Attention positions: ``{"k", "v"}`` of ``[n_rep, bsz, max_len,
+        Hkv, hd]`` in ``dtype``.  RWKV positions: ``{"last_x", "state"}``
+        of ``[n_rep, bsz, d]`` in ``dtype`` and ``[n_rep, bsz, H, hd,
+        hd]`` in f32 (``max_len`` does not enter).
         """
         cfg = self.cfg
+        dtype = dtype or self.param_dtype
+        caches = []
+        for spec in self.specs:
+            if spec.kind == "rwkv":
+                one = rwkv_mod.init_rwkv_cache(bsz, cfg.d_model, cfg.n_heads,
+                                               cfg.hd, dtype, self.device)
+                caches.append({name: t.expand((self.n_rep,) + t.shape).contiguous()
+                               for name, t in one.items()})
+                continue
+            shape = (self.n_rep, bsz, max_len, cfg.n_kv_heads, cfg.hd)
+            caches.append({
+                "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)})
+        return caches
+
+    def _layer_step(self, p, spec, x, cache, r, cos_sin, pos):
+        """One-token layer step. x: [B,1,d]; pos: [B] cursor per row.
+
+        Writes this step's entries into repeat ``r`` of the stacked
+        ``cache`` in place: k/v at the cursor, or RWKV's last input and
+        state.
+        """
+        cfg = self.cfg
+        if spec.kind == "rwkv":
+            h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
+            o, new = rwkv_mod.rwkv_step(
+                p["mixer"], h, {name: t[r] for name, t in cache.items()},
+                cfg.n_heads, cfg.hd, cfg.norm_eps)
+            for name, t in new.items():
+                cache[name][r].copy_(t)
+            x = x + o
+            return x + self._ffn(p, x)
+        k_cache, v_cache = cache["k"][r], cache["v"][r]
         b = x.shape[0]
         h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
         q, k, v = self._qkv(p["mixer"], h)
@@ -313,9 +357,9 @@ class LM(nn.Module):
         """
         x = embed(self.embed, tokens).to(self.param_dtype)
         pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
-        for block, c in zip(self.blocks, cache):
+        for spec, block, c in zip(self.specs, self.blocks, cache):
             for r in range(self.n_rep):
-                x = self._layer_step(block.rep(r), x, c["k"][r], c["v"][r],
+                x = self._layer_step(block.rep(r), spec, x, c, r,
                                      self.cos_sin, pos)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return unembed(x, self._table()), cache

@@ -26,7 +26,9 @@ def _port_modules():
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     modules = _port_modules()
-    assert "repro_torch.models.transformer" in modules
+    for name in ("repro_torch.models.transformer", "repro_torch.models.rwkv",
+                 "repro_torch.kernels.rwkv_wkv", "repro_torch.configs.rwkv6_1b6"):
+        assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys
 

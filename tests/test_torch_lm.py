@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import LM as JaxLM
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import flatten_tree, load_jax_params, to_numpy_tree
 from repro_torch.models import LM
 
@@ -42,8 +43,10 @@ def _tokens(cfg, bsz=2, seq=12, seed=1):
 
 
 def test_configs_are_copies():
-    for arch in ("llama3_8b", "qwen25_32b", "granite_8b", "minitron_4b"):
+    for arch in ("llama3_8b", "qwen25_32b", "granite_8b", "minitron_4b",
+                 "rwkv6_1b6"):
         assert get_smoke_config(arch).__dict__ == jax_smoke_config(arch).__dict__
+        assert get_config(arch).__dict__ == jax_config(arch).__dict__
 
 
 @pytest.mark.parametrize("name", sorted(_CFGS))
@@ -111,7 +114,6 @@ def test_decode_with_per_slot_positions_matches_jax():
 
 @pytest.mark.parametrize("change,slice_name", [
     (dict(n_experts=4, experts_per_token=2), "MoE"),
-    (dict(attention_free=True), "RWKV"),
     (dict(attn_layer_period=2), "SSM"),
     (dict(cross_attn_period=2, frontend_tokens=4, frontend_dim=64),
      "cross-attention"),
