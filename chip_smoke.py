@@ -8,13 +8,17 @@ a non-zero exit if it fails:
 
 0. env         card name and power limit (nvidia-smi), torch/CUDA/nvcc versions
 1. build       every kernel library from ``src/repro_torch/kernels/csrc``, one
-               ``nvcc`` per source, all started together; ptxas registers
-               and spills of each
+               ``nvcc`` per source, all started together; ptxas registers,
+               spills and shared memory of each; ``cuobjdump -sass`` must
+               show HGMMA (wgmma) and UTMALDG (TMA loads) in every
+               instantiation of the tensor-core flash kernel
 2. kernel      ``flash_attention_bhsd`` vs its plain version on the card, f32
                and bf16, causal both ways, at the test shapes, a ragged S=1000
-               and every shape the later phases give it; at S >= 256 also a
-               planted fault (one V tile zeroed) that the limit must reject;
-               times at the one-layer prefill shape
+               and every shape the later phases give it, each row naming the
+               kernel that served it (tensor-core or CUDA-core); at S >= 256
+               also a planted fault (one V tile zeroed) that the limit must
+               reject; times at the one-layer prefill shape, with achieved
+               TFLOP/s, share of the bound and the ratio to SDPA
 3. wkv         ``wkv_bhsd`` vs its plain version, out and state, f32 and bf16
                r/k/v with f32 w, two laws of w, nonzero s0, at the test
                shapes, a ragged S=1000 and every prefill and decode shape
@@ -23,9 +27,11 @@ a non-zero exit if it fails:
                one 4096 call against two 2048 calls with the state carried;
                times at the one-layer prefill shape
 4. prefill     full llama3_8b (32 layers, bf16, seeded random weights):
-               ``prefill`` on 2 x 4096 tokens, 32 kernel launches per call
+               ``prefill`` on 2 x 4096 tokens, 32 tensor-core kernel launches
+               per call
 5. consistency full width, 4 layers, f32 (TF32 off): prefill logits through
-               the kernel vs decode logits through plain ``decode_attention``
+               the CUDA-core kernel vs decode logits through plain
+               ``decode_attention``
 6. serve       ``ServeLoop(slots=4, max_len=256)`` answering 8 requests on
                full llama3_8b; a torch.profiler window over one prefill
                call and one decode step; then ``serve.main(["--production",
@@ -83,6 +89,7 @@ KERNEL_SHAPES = [
     (1, 128, 8, 1, 64),     # MQA
     (2, 48, 4, 4, 128),     # S not a multiple of the tile
     (1, 1000, 32, 8, 128),  # ragged S at llama3_8b heads
+    (2, 1000, 16, 4, 64),   # ragged S, GQA 4:1, the tensor-core kernel's hd 64
     MAIN_SHAPE,
     (*PREFILL, 32, 8, 128),     # what phase 3's prefill gives the kernel
     (*MAIN_PATH, 32, 8, 128),   # what serve.main's prefill gives it
@@ -143,11 +150,16 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def attention_flops(bh, s, hd, causal) -> int:
+    """The algorithm's operations: two products over the unmasked score pairs."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * hd * pairs * bh
+
+
 def attention_bound_ms(bh, bh_kv, s, hd, causal, dtype, elem_bytes) -> tuple[float, str]:
     """Least time for the work: the unmasked score pairs' two products over
     the peak rate, or q/k/v read once and o written once over HBM."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    t_ops = 4 * hd * pairs * bh / PEAK_FLOPS[dtype]
+    t_ops = attention_flops(bh, s, hd, causal) / PEAK_FLOPS[dtype]
     t_bytes = (2 * bh + 2 * bh_kv) * s * hd * elem_bytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -176,9 +188,36 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     for name, log in zip(KERNEL_SOURCES, logs):
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if "entry function" in ln or "registers" in ln or "spill" in ln]
+                 if "entry function" in ln or "registers" in ln or "spill" in ln
+                 or "smem" in ln or "warning" in ln]
         emit("build", kernel=name, built=bool(log), ptxas=ptxas)
     emit("build", seconds=secs, kernels=list(KERNEL_SOURCES))
+    lib = _build.load_library("flash_attention")
+    emit("build", kernel="flash_attention", wgmma_dynamic_smem_bytes={
+        hd: lib.repro_flash_attention_wgmma_smem_bytes(hd) for hd in fa.WGMMA_HEAD_DIMS})
+    sass = sass_instructions("flash_attention", "flash_fwd_wgmma_kernel", ("HGMMA", "UTMALDG"))
+    emit("build", kernel="flash_attention", sass=sass)
+    check(len(sass) == len(fa.WGMMA_HEAD_DIMS) and
+          all(n > 0 for counts in sass.values() for n in counts.values()),
+          f"the tensor-core flash kernel lacks HGMMA or UTMALDG in its SASS: {sass}")
+
+
+def sass_instructions(source: str, kernel: str, opcodes) -> dict:
+    """Count of each opcode in the SASS of every function of the built
+    ``source`` library whose name contains ``kernel``."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    dump = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if kernel in name:
+                counts[name] = dict.fromkeys(opcodes, 0)
+        elif name in counts:
+            for op in opcodes:
+                counts[name][op] += f" {op}" in line
+    return counts
 
 
 def planted_fault(q, k, v, causal):
@@ -196,6 +235,20 @@ def limit_ratio(out, ref, atol, rtol) -> float:
     return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
 
 
+def cuda_core_bf16_ms(q, k, v, reps: int) -> float:
+    """The CUDA-core kernel's time on bf16 inputs that the wrapper sends to
+    the tensor-core kernel: the earlier design, timed in the same run.
+    Called through its C entry point, so no launch count moves."""
+    o = torch.empty_like(q)
+    fn = fa._kernel("cuda_core")
+    stream = torch.cuda.current_stream().cuda_stream
+    bh, s, hd = q.shape
+    launch = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),  # noqa: E731
+                        bh, k.shape[0], s, hd, 1, 1, hd ** -0.5, stream)
+    check(launch() == 0, "the CUDA-core kernel refused a bf16 launch")
+    return time_ms(launch, reps)
+
+
 def phase_kernel() -> tuple[dict, list]:
     """Kernel vs plain at every shape and dtype; times at the main shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -206,15 +259,21 @@ def phase_kernel() -> tuple[dict, list]:
             q, k, v = (torch.randn((b * n, s, hd), generator=gen, device="cuda").to(dt)
                        for n in (h, hkv, hkv))
             for causal in (True, False):
+                before = dict(fa.flash_attention_bhsd.variant_launches)
                 out = fa.flash_attention_bhsd(q, k, v, causal=causal)
+                served = [n for n, c in fa.flash_attention_bhsd.variant_launches.items()
+                          if c != before[n]]
                 ref = fa.flash_attention_bhsd_plain(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 atol, rtol = TOL[name]
                 err = float((out.float() - ref.float()).abs().max())
                 ok = bool(torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol))
                 row = dict(shape=[b, s, h, hkv, hd], dtype=name, causal=causal,
+                           variant=served[0] if len(served) == 1 else served,
                            max_abs_err=err, atol=atol, rtol=rtol, ok=ok,
                            limit_ratio=limit_ratio(out.float(), ref.float(), atol, rtol))
+                check(row["variant"] == fa.kernel_variant(dt, hd),
+                      f"launch counts show {served} serving {row}")
                 if s >= 256:
                     bad = planted_fault(q, k, v, causal).float()
                     row["fault_max_abs_err"] = float((bad - ref.float()).abs().max())
@@ -237,6 +296,12 @@ def phase_kernel() -> tuple[dict, list]:
                         (sdpa().reshape(out.shape).float() - ref.float()).abs().max())
                     row["bound_ms"], row["bound_by"] = attention_bound_ms(
                         b * h, b * hkv, s, hd, True, name, q.element_size())
+                    row["achieved_tflops"] = (attention_flops(b * h, s, hd, True)
+                                              / row["kernel_ms"] / 1e9)
+                    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+                    row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+                    if name == "bf16":
+                        row["cuda_core_kernel_ms"] = cuda_core_bf16_ms(q, k, v, reps)
                     timed[name] = row
                 emit("kernel", **row)
                 rows.append(row)
@@ -373,17 +438,18 @@ def phase_prefill(model) -> dict:
     torch.cuda.reset_peak_memory_stats()
     launches, secs = [], []
     for _ in range(2):          # the first call also warms cuBLAS up
-        fa.flash_attention_bhsd.launches = 0
+        fa.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = serve.prefill(model, tokens)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        launches.append(fa.flash_attention_bhsd.launches)
+        launches.append(dict(fa.flash_attention_bhsd.variant_launches))
         check(tuple(logits.shape) == (b, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
-        check(launches[-1] == cfg.n_layers,
-              f"{launches[-1]} kernel launches in one prefill, want {cfg.n_layers}")
+        check(launches[-1] == {"wgmma": cfg.n_layers, "cuda_core": 0},
+              f"kernel launches in one prefill {launches[-1]}, want {cfg.n_layers} "
+              f"of the tensor-core kernel")
     peak = torch.cuda.max_memory_allocated()
     # the kernel alone at this call's attention shape, to split the time
     q = torch.randn((b * cfg.n_heads, s, cfg.hd), generator=gen, device="cuda").bfloat16()
@@ -398,15 +464,20 @@ def phase_prefill(model) -> dict:
     return row
 
 
-def phase_consistency(cfg_full) -> None:
+def phase_consistency(cfg_full) -> int:
+    """Prefill logits vs decode logits, full width, 4 layers, f32; returns
+    the CUDA-core kernel's launches in the prefill, the one path that runs
+    it."""
     cfg = replace(cfg_full, n_layers=4)
     b, s = 2, 80                    # S not a multiple of the kernel's 64-row tile
     model = LM(cfg, param_dtype=torch.float32, seed=SEED, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
-    fa.flash_attention_bhsd.launches = 0
+    fa.reset_launch_counts()
     last = serve.prefill(model, tokens)
-    check(fa.flash_attention_bhsd.launches == cfg.n_layers, "prefill missed the kernel")
+    launches = dict(fa.flash_attention_bhsd.variant_launches)
+    check(launches == {"wgmma": 0, "cuda_core": cfg.n_layers},
+          f"f32 prefill kernel launches {launches}, want {cfg.n_layers} of the CUDA-core kernel")
     with torch.no_grad():
         full = model(tokens)
         cache = model.init_cache(b, s, dtype=torch.float32)
@@ -417,10 +488,11 @@ def phase_consistency(cfg_full) -> None:
     err_last = float((logits[:, 0] - last).abs().max())
     emit("consistency", layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s,
          dtype="f32", max_abs_err_last=err_last, max_abs_err_all_positions=worst,
-         tol=2e-3)
+         tol=2e-3, kernel_launches=launches)
     check(err_last < 2e-3 and worst < 2e-3,
           f"prefill vs decode logits differ: last {err_last}, all {worst}")
     del model, cache, full
+    return launches["cuda_core"]
 
 
 def phase_serve(model) -> dict:
@@ -432,7 +504,7 @@ def phase_serve(model) -> dict:
     loop = ServeLoop(model, slots=4, max_len=256)
     for r in requests:
         loop.submit(r)
-    fa.flash_attention_bhsd.launches = 0
+    fa.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = loop.run()
@@ -445,7 +517,7 @@ def phase_serve(model) -> dict:
                new_tokens=32 * len(done), seconds=secs,
                decode_tokens_per_s=32 * len(done) / secs,
                processed_tokens_per_s=(prompt_tokens + 32 * len(done)) / secs,
-               kernel_launches=fa.flash_attention_bhsd.launches)
+               kernel_launches=dict(fa.flash_attention_bhsd.variant_launches))
     emit("serve", **row)
     return row
 
@@ -500,8 +572,42 @@ def phase_profile(model) -> None:
              **profile_window(step, 10))
 
 
+def flash_row(main_row: dict, checks: list, variant: str, launches: int, path: str) -> dict:
+    """The kernels-line entry of one flash kernel: errors over the phase-2
+    rows it served, times at the main shape in the dtype it serves there."""
+    mine = [r for r in checks if r["variant"] == variant]
+    return {
+        "name": f"flash_attention_bhsd[{variant}]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82",
+        "launches": launches,
+        "launches_counted_on": path,
+        "serves": ("bf16 at hd 64 and 128" if variant == "wgmma"
+                   else "f32 at hd 16-128, bf16 at hd 16 and 32"),
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in mine if r["dtype"] == d)
+                                 for d in TOL if any(r["dtype"] == d for r in mine)},
+        "tol": {d: {"atol": a, "rtol": r} for d, (a, r) in TOL.items()},
+        "limit_ratio": max(r["limit_ratio"] for r in mine),
+        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in mine
+                                     if "fault_limit_ratio" in r),
+        "checked_shapes": sorted({tuple(r["shape"]) for r in mine}),
+        "ms": main_row["kernel_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "achieved_tflops": main_row["achieved_tflops"],
+        "bound_share": main_row["bound_share"],
+        "kernel_over_library": main_row["kernel_over_library"],
+        "shape": main_row["shape"],
+        "dtype": main_row["dtype"],
+    }
+
+
 def reset_launches() -> None:
-    fa.flash_attention_bhsd.launches = 0
+    fa.reset_launch_counts()
     wkv.wkv_bhsd.launches = 0
 
 
@@ -513,14 +619,15 @@ def phase_main_path() -> int:
     t0 = time.perf_counter()
     rc = serve.main(argv)
     torch.cuda.synchronize()
-    launches = fa.flash_attention_bhsd.launches
+    launches = dict(fa.flash_attention_bhsd.variant_launches)
     emit("serve_main", argv=argv, rc=rc, seconds=time.perf_counter() - t0,
          kernel_launches=launches, wkv_launches=wkv.wkv_bhsd.launches)
     check(rc == 0, f"serve.main exited {rc}")
     want = get_config("llama3_8b").n_layers    # one launch per layer, one prefill
-    check(launches == want, f"{launches} kernel launches on the main path, want {want}")
+    check(launches == {"wgmma": want, "cuda_core": 0},
+          f"kernel launches on the main path {launches}, want {want} of the tensor-core kernel")
     check(wkv.wkv_bhsd.launches == 0, "the llama path launched the WKV kernel")
-    return launches
+    return launches["wgmma"]
 
 
 def phase_rwkv_prefill(model, wkv_ms: float) -> dict:
@@ -636,7 +743,7 @@ def main() -> int:
     cfg = get_config("llama3_8b")
     model = LM(cfg, seed=SEED, device="cuda")        # bf16, full depth
     phase_prefill(model)
-    phase_consistency(cfg)
+    cuda_core_launches = phase_consistency(cfg)
     phase_serve(model)
     phase_profile(model)
     del model
@@ -653,32 +760,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     wkv_launches = phase_rwkv_main_path()
 
-    main_row = timed["bf16"]
-    kernels = [{
-        "name": "flash_attention_bhsd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:82",
-        "launches": launches,
-        # worst over every shape, dtype and causal mode of phase 2
-        "max_abs_err": max(r["max_abs_err"] for r in checks),
-        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in checks
-                                        if r["dtype"] == d) for d in TOL},
-        "tol": {d: {"atol": a, "rtol": r} for d, (a, r) in TOL.items()},
-        "limit_ratio": max(r["limit_ratio"] for r in checks),
-        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in checks
-                                     if "fault_limit_ratio" in r),
-        "checked_shapes": [list(sh) for sh in KERNEL_SHAPES],
-        "ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"],
-        "dtype": "bf16",
-        "f32": {k: timed["f32"][k] for k in
-                ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms")},
-    }, {
+    kernels = [flash_row(timed["bf16"], checks, "wgmma", launches,
+                         "every llama3_8b prefill (serve.main --production)"),
+               flash_row(timed["f32"], checks, "cuda_core", cuda_core_launches,
+                         "the 4-layer f32 prefill of phase 5")]
+    kernels.append({
         "name": "wkv_bhsd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
@@ -706,7 +792,7 @@ def main() -> int:
         "torch_chunked_ms": wkv_timed["bf16"]["torch_chunked_ms"],
         "shape": list(WKV_MAIN),
         "dtype": "bf16 r/k/v/out, f32 w",
-    }]
+    })
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,8 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "load_library",
-           "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library_path",
+           "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -43,6 +43,11 @@ def _paths(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` as it is now is built."""
+    return _paths(name)[1]
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its current library exists.
 
@@ -65,4 +70,4 @@ def build(name: str) -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """The built ``csrc/<name>.cu``, compiled first if needed."""
     build(name)
-    return ctypes.CDLL(str(_paths(name)[1]))
+    return ctypes.CDLL(str(library_path(name)))

@@ -3,25 +3,68 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_bhsd, body _kernel): softmax(q k^T * hd^-0.5) v over
 // q [BHq, S, hd] and k/v [BHkv, S, hd], causal or full, GQA by mapping
-// query head bh to kv head bh / group without repeating K/V.  f32 and
-// bf16 inputs; q, k and v are upcast to f32 and q is scaled in f32, as
-// the TPU kernel does, and the running max, sum and accumulator stay in
-// f32.  The output is cast to the input type.
+// query head bh to kv head bh / group without repeating K/V.  The running
+// max, sum and accumulator stay in f32, masked scores get the TPU kernel's
+// -1e30, and the output is cast to the input type.  Two kernels compute
+// that function; the wrapper picks one by dtype and hd, and neither falls
+// back to the other:
 //
-// Bound at the main-path shape (one llama3_8b prefill layer: B=1,
-// S=4096, Hq=32, Hkv=8, hd=128, causal, bf16): the unmasked half of the
-// score matrix needs 4*hd*S*(S+1)/2*Hq = 137.5 GFLOP, 0.139 ms at the
-// H100 SXM's 989 TFLOP/s bf16 dense (spec sheet, 700 W); q/k/v/o are
-// 83.9 MB, 0.025 ms at 3.35 TB/s.  So it is bound by operations.
+// * flash_fwd_wgmma_kernel (repro_flash_attention_fwd_wgmma): bf16 at hd 64
+//   and 128, on the tensor cores with TMA.  Every llama3_8b prefill layer
+//   runs it.
+// * flash_fwd_kernel (repro_flash_attention_fwd): f32 and bf16 at hd 16,
+//   32, 64 and 128, f32 arithmetic on the CUDA cores.  It serves f32 calls
+//   and bf16 at hd 16 and 32.
 //
-// Design.  This first version is simple and right, not fast: it does
-// its arithmetic in f32 on the CUDA cores (no tensor cores), so it sits
-// far from that bound; wgmma, TMA and warp specialisation come later.
+// Bound at the main-path shape (one llama3_8b prefill layer: B=1, S=4096,
+// Hq=32, Hkv=8, hd=128, causal, bf16): the unmasked half of the score
+// matrix needs 4*hd*S*(S+1)/2*Hq = 137.5 GFLOP, 0.139 ms at the H100 SXM's
+// 989 TFLOP/s bf16 dense (spec sheet, 700 W); q/k/v/o are 83.9 MB, 0.025 ms
+// at 3.35 TB/s.  So it is bound by operations, on the tensor cores.
+//
+// The tensor-core kernel.
+// * Numerics.  The TPU kernel keeps p in f32 for the P.V product.  Rounding
+//   p once to bf16 for the tensor cores, as FlashAttention does, computes
+//   another function: against the f32 reference it misses the one-bf16-ulp
+//   limit by 50-80x at S = 1024-4096.  So p is split into two bf16 operands,
+//   hi = bf16(p) and lo = bf16(p - hi), and O += hi.V + lo.V: both products
+//   are exact in f32 and the split leaves at most 2^-18 of p.  This is 1.5x
+//   the algorithm's tensor work.  The scores are the exact f32 products of
+//   bf16 q and k, scaled afterwards in f32 by hd^-0.5 * log2(e), so that
+//   exp2 gives the TPU kernel's exp; this differs from its f32 q * scale by
+//   f32 rounding only.  The row sum l comes from the f32 p.
+// * Work split.  One block of 288 threads owns 128 query rows of one
+//   (b, head): warps 0-7 are two consumer warpgroups of 64 rows each, warp
+//   8 the producer.  The producer's first lane issues the TMA loads: the q
+//   tile once, then the 128-key K and V tiles of a two-stage ring, each
+//   stage guarded by full barriers (transaction bytes) and an empty barrier
+//   that all 256 consumer threads arrive on once they are done with it.
+//   K and V have their own full barriers, so S = Q.K^T starts before V
+//   lands.  No setmaxnreg: ptxas gives the 288 threads 168 registers each
+//   (it sizes the block as three warpgroups), which spills 72 bytes at hd
+//   128 and none at hd 64; giving the consumers more is later work.
+// * Layout.  Tiles sit in shared memory as the 128-byte swizzle of TMA: a
+//   row of hd bf16 values is split into 64-column panels of 128 bytes, 8
+//   rows to a 1024-byte atom.  q and K are read K-major by wgmma; V is read
+//   MN-major (the descriptor's transpose bit), so neither is transposed in
+//   memory.  GQA is the kv-head coordinate bh / group of the K/V loads.
+//   TMA writes zeros for rows past S, which covers the ragged tail.
+// * Scores and softmax in registers.  S = Q.K^T is wgmma m64n128k16 with
+//   f32 accumulators; each thread holds two rows (r, r + 8) of 32 columns,
+//   so a row's max needs two shuffles in its quad of threads.  Tiles that
+//   cross the diagonal or the tail are masked; tiles wholly above the
+//   diagonal are skipped, as the CUDA-core kernel does.  The f32 scores
+//   accumulator maps one to one onto the A-operand registers of the next
+//   wgmma, so hi and lo go to P.V from registers.
+// * Epilogue: O / max(l, 1e-30), rounded once to bf16, rows past S skipped.
+// * Heaviest q tiles are launched first.
+//
+// The CUDA-core kernel.
 // * The TPU kernel's sequential K axis becomes a loop inside the block:
 //   one block of 256 threads owns one (bh, 64-row q tile) and walks the
-//   64-column K/V tiles, keeping q*scale in shared memory and its slice
-//   of the output accumulator in registers (4 rows x hd/16 columns per
-//   thread).
+//   64-column K/V tiles, keeping q*scale (upcast, scaled in f32) in shared
+//   memory and its slice of the output accumulator in registers (4 rows x
+//   hd/16 columns per thread).
 // * K and V tiles share one shared buffer (K for the scores, then V for
 //   the product), which keeps a block at 83.5 KB for hd=128 so two blocks
 //   fit on an SM.  Rows have one float of padding, so the 16 threads of
@@ -34,6 +77,8 @@
 //   columns are loaded as zeros and tail rows are never stored.
 // * Causal work grows with the q tile index, so the heaviest tiles are
 //   launched first.
+#include <cstdint>
+#include <cuda.h>          // CUtensorMap and its enums only: no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -237,8 +282,404 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, in
 
 }  // namespace
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (bf16, hd 64 and 128).
+namespace {
+
+constexpr int kTcBM = 128;                 // q rows per block: two warpgroups of 64
+constexpr int kTcBN = 128;                 // keys per K/V tile
+constexpr int kTcStages = 2;               // K/V ring depth
+constexpr int kTcConsumers = 256;          // threads of the two consumer warpgroups
+constexpr int kTcThreads = kTcConsumers + 32;   // and one producer warp
+constexpr int kPanelCols = 64;             // bf16 columns of one 128-byte swizzled panel
+constexpr int kRowBytes = 128;             // bytes of one panel row
+// a wait that outlasts this many polls means a lost TMA transaction:
+// trap, so the launch fails instead of hanging the card
+constexpr unsigned kSpinLimit = 1u << 24;
+
+template <int HD>
+struct TcSmem {                            // byte offsets from a 1024-aligned base
+  static constexpr int kQBytes = kTcBM * HD * 2;
+  static constexpr int kTileBytes = kTcBN * HD * 2;      // one K or one V tile
+  static constexpr int kK = kQBytes;                     // K of stage s at kK + s * kTileBytes
+  static constexpr int kV = kK + kTcStages * kTileBytes;
+  static constexpr int kBar = kV + kTcStages * kTileBytes;
+  // barriers: q full, K full [stages], V full [stages], empty [stages]
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kTcStages);
+  static constexpr size_t kAlloc = kBytes + 1024;        // slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (unsigned polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == kSpinLimit) __trap();
+  }
+}
+
+// One TMA tile load of a [heads, seq, hd] tensor into shared memory;
+// completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// K-major (q, K): 8-row groups 1024 bytes apart; the leading offset is
+// unused by the swizzled K-major layout.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return smem_desc(addr, 16, 8 * kRowBytes);
+}
+
+// MN-major (V as B of P.V): 8-key groups 1024 bytes apart; 64-column panels
+// of hd a whole tile apart.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return smem_desc(addr, kTcBN * kRowBytes, 8 * kRowBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from touching accumulators across an asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define FA_F8(a, i)                                                                       \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),            \
+      "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+#define FA_F32(a, i) FA_F8(a, i), FA_F8(a, i + 8), FA_F8(a, i + 16), FA_F8(a, i + 24)
+#define FA_D32                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FA_D64                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] (+)= a[64 x 16] . b[128 x 16]^T, a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_scores(float (&d)[64], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FA_F32(d, 0), FA_F32(d, 32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x N] += a[64 x 16] . b[16 x N]: a from registers (bf16 pairs), b
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_F32(d, 0), FA_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// p = hi + lo with hi = bf16(p) and lo = bf16(p - hi), as bf16 pairs.
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                       int seq, int group, float scale_log2, int causal) {
+  using L = TcSmem<HD>;
+  constexpr int kPanels = HD / kPanelCols;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;   // the swizzle atom's alignment
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8;                  // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kTcStages;
+  const uint32_t empty = v_full + 8 * kTcStages;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBM;
+  int n_kv = (seq + kTcBN - 1) / kTcBN;
+  if (causal) n_kv = min(n_kv, (q0 + kTcBM - 1) / kTcBN + 1);
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kTcConsumers) {
+    // producer warp: one lane issues every load of the block
+    if (tid == kTcConsumers) {
+      const int kvh = bh / group;
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int p = 0; p < kPanels; ++p)
+        tma_load(base + p * kTcBM * kRowBytes, &tm_q, q_full, p * kPanelCols, q0, bh);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kTcStages;
+        mbar_wait(empty + 8 * s, ((j / kTcStages) & 1) ^ 1);   // the first round passes
+        const uint32_t kd = base + L::kK + s * L::kTileBytes;
+        const uint32_t vd = base + L::kV + s * L::kTileBytes;
+        mbar_expect_tx(k_full + 8 * s, L::kTileBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(kd + p * kTcBN * kRowBytes, &tm_k, k_full + 8 * s, p * kPanelCols, j * kTcBN, kvh);
+        mbar_expect_tx(v_full + 8 * s, L::kTileBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(vd + p * kTcBN * kRowBytes, &tm_v, v_full + 8 * s, p * kPanelCols, j * kTcBN, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns rows q0 + 64 wg .. + 63; this thread holds
+  // rows r and r + 8 at columns 8 c + col + {0, 1} of every 8-column chunk c
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int row_a = q0 + wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  const int row_b = row_a + 8;
+  const int col = 2 * (lane % 4);
+  const uint32_t q_tile = base + wg * 64 * kRowBytes;
+
+  float acc[HD / 2];                       // O, f32
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf;      // running max of scaled scores (log2 units)
+  float l_a = 0.f, l_b = 0.f;              // this thread's share of the running sum
+  float s[kTcBN / 2];                      // scores, then p
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % kTcStages;
+    const uint32_t parity = (j / kTcStages) & 1;
+    const uint32_t k_tile = base + L::kK + st * L::kTileBytes;
+    const uint32_t v_tile = base + L::kV + st * L::kTileBytes;
+
+    mbar_wait(k_full + 8 * st, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t koff = (kk % 4) * 32;   // 16 columns into panel kk / 4
+      wgmma_scores(s, desc_k_major(q_tile + (kk / 4) * kTcBM * kRowBytes + koff),
+                   desc_k_major(k_tile + (kk / 4) * kTcBN * kRowBytes + koff), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    const int k0 = j * kTcBN;
+#pragma unroll
+    for (int i = 0; i < kTcBN / 2; ++i) s[i] *= scale_log2;
+    if (k0 + kTcBN > seq || (causal && k0 + kTcBN - 1 > q0 + wg * 64)) {
+#pragma unroll
+      for (int i = 0; i < kTcBN / 2; ++i) {
+        const int c = k0 + 8 * (i / 4) + col + (i & 1);
+        const int r = (i & 2) ? row_b : row_a;
+        if (c >= seq || (causal && c > r)) s[i] = kNegInf;
+      }
+    }
+
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int i = 0; i < kTcBN / 2; i += 4) {
+      mx_a = fmaxf(mx_a, fmaxf(s[i], s[i + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[i + 2], s[i + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {   // the quad of threads that share a row
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float corr_a = exp2f(m_a - mx_a), corr_b = exp2f(m_b - mx_b);
+    m_a = mx_a;
+    m_b = mx_b;
+
+    // p in f32 for the row sum, then as hi + lo bf16 pairs: pair i holds
+    // elements 2i and 2i+1, which is the A-operand register order of P.V
+    uint32_t hi[kTcBN / 4], lo[kTcBN / 4];
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTcBN / 4; ++i) {
+      const float m = (i & 1) ? m_b : m_a;
+      const float p0 = exp2f(s[2 * i] - m), p1 = exp2f(s[2 * i + 1] - m);
+      if (i & 1) sum_b += p0 + p1;
+      else sum_a += p0 + p1;
+      split_bf16(p0, p1, hi[i], lo[i]);
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? corr_b : corr_a;
+
+    mbar_wait(v_full + 8 * st, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBN / 16; ++kk)
+      wgmma_pv(acc, hi + 4 * kk, desc_mn_major(v_tile + kk * 16 * kRowBytes));
+#pragma unroll
+    for (int kk = 0; kk < kTcBN / 16; ++kk)
+      wgmma_pv(acc, lo + 4 * kk, desc_mn_major(v_tile + kk * 16 * kRowBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * st);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  l_a = fmaxf(l_a, 1e-30f);
+  l_b = fmaxf(l_b, 1e-30f);
+  __nv_bfloat16* op = o + static_cast<size_t>(bh) * seq * HD;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const int d = 8 * c + col;
+    if (row_a < seq)
+      *reinterpret_cast<__nv_bfloat162*>(op + static_cast<size_t>(row_a) * HD + d) =
+          __floats2bfloat162_rn(acc[4 * c] / l_a, acc[4 * c + 1] / l_a);
+    if (row_b < seq)
+      *reinterpret_cast<__nv_bfloat162*>(op + static_cast<size_t>(row_b) * HD + d) =
+          __floats2bfloat162_rn(acc[4 * c + 2] / l_b, acc[4 * c + 3] / l_b);
+  }
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library links no libcuda; null if the driver has none.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a contiguous bf16 [heads, seq, hd] tensor, read in
+// boxes of 64 columns x `rows` rows of one head, 128-byte swizzled; rows
+// past seq read as zeros.
+bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int heads, int seq,
+                int hd, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(seq) * hd * 2};
+  const cuuint32_t box[3] = {kPanelCols, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh, int bh_kv,
+                         int seq, float scale, int causal, cudaStream_t stream) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map(encode, &tm_q, q, bh, seq, HD, kTcBM) ||
+      !tensor_map(encode, &tm_k, k, bh_kv, seq, HD, kTcBN) ||
+      !tensor_map(encode, &tm_v, v, bh_kv, seq, HD, kTcBN))
+    return cudaErrorInvalidValue;
+  const size_t bytes = TcSmem<HD>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (seq + kTcBM - 1) / kTcBM);
+  // scores are scaled into log2 units so that exp2 gives exp
+  flash_fwd_wgmma_kernel<HD><<<grid, kTcThreads, bytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), seq, bh / bh_kv,
+      scale * 1.4426950408889634f, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // q [bh, seq, hd], k/v [bh_kv, seq, hd], o [bh, seq, hd], all contiguous, on
-// one device, of one type (is_bf16 ? bf16 : f32).  Launches on `stream` and
+// one device, of one type (is_bf16 ? bf16 : f32).  The CUDA-core kernel:
+// any of those types at hd 16, 32, 64 or 128.  Launches on `stream` and
 // does not synchronise; returns the cudaError_t of the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          int bh, int bh_kv, int seq, int hd, int is_bf16,
@@ -248,4 +689,34 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return dispatch_hd<__nv_bfloat16>(q, k, v, o, bh, bh_kv, seq, hd, scale, causal, s);
   return dispatch_hd<float>(q, k, v, o, bh, bh_kv, seq, hd, scale, causal, s);
+}
+
+// The same arguments; the tensor-core kernel, which takes bf16 (is_bf16 = 1)
+// at hd 64 or 128 with 16-byte-aligned q, k and v, and nothing else.
+extern "C" int repro_flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
+                                               void* o, int bh, int bh_kv, int seq, int hd,
+                                               int is_bf16, int causal, float scale,
+                                               void* stream) {
+  if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 ||
+      (seq + kTcBM - 1) / kTcBM > 65535 || !is_bf16)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+    return cudaErrorMisalignedAddress;   // TMA reads from 16-byte-aligned bases only
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64: return launch_wgmma<64>(q, k, v, o, bh, bh_kv, seq, scale, causal, s);
+    case 128: return launch_wgmma<128>(q, k, v, o, bh, bh_kv, seq, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the tensor-core kernel at `hd`, in bytes (0 if
+// it does not take that hd).
+extern "C" int repro_flash_attention_wgmma_smem_bytes(int hd) {
+  switch (hd) {
+    case 64: return static_cast<int>(TcSmem<64>::kAlloc);
+    case 128: return static_cast<int>(TcSmem<128>::kAlloc);
+    default: return 0;
+  }
 }

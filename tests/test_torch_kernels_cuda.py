@@ -9,7 +9,9 @@ a machine that has only the port's dependencies:
 Tolerances (atol, rtol), those of ``chip_smoke.py``: flash f32 2e-5
 for summation order, as ``tests/test_kernels.py``; flash bf16 1e-5 and
 2**-7, because kernel and plain version both compute in f32 and round
-once to bf16, so they differ by at most one bf16 ulp of the output.
+once to bf16, so they differ by at most one bf16 ulp of the output.  The
+tensor-core kernel (bf16 at hd 64 and 128) is held to the same bf16
+limit: it splits p into two bf16 halves, so its P.V keeps the f32 p.
 WKV out: rtol 1e-5 in f32 and 2**-7 in bf16 on the same grounds, and an
 atol of 2e-4 in both, 20 standard deviations of the f32 difference
 between two summation orders of the 64 products r_i (S_ij + u_i k_i v_j),
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.kernels import (flash_attention_bhsd, flash_attention_bhsd_plain,
                                  rwkv_wkv, wkv_bhsd, wkv_bhsd_plain)
+from repro_torch.kernels.flash_attention import kernel_variant
 
 _SHAPES = [
     (1, 32, 2, 2, 16),      # MHA
@@ -29,6 +32,14 @@ _SHAPES = [
     (1, 128, 8, 1, 64),     # MQA
     (2, 48, 4, 4, 128),     # S not a multiple of the tile
     (1, 1000, 4, 2, 128),   # ragged S over several tiles
+    # the tensor-core kernel's 128-row q and K/V tiles: one row, one short
+    # of a tile, one past it, many tiles; GQA 4:1 at both of its head dims
+    (1, 1, 4, 1, 128),
+    (1, 127, 4, 1, 128),
+    (1, 129, 4, 1, 128),
+    (1, 4096, 4, 1, 128),
+    (2, 300, 8, 2, 64),
+    (2, 300, 8, 2, 128),
 ]
 
 
@@ -62,8 +73,30 @@ def test_flash_kernel_matches_plain(card, b, s, h, hkv, hd, dtype, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,variant", [
+    ("bf16", 64, "wgmma"), ("bf16", 128, "wgmma"),
+    ("bf16", 16, "cuda_core"), ("bf16", 32, "cuda_core"),
+    ("f32", 64, "cuda_core"), ("f32", 128, "cuda_core")])
+def test_flash_kernel_variant_counts(card, dtype, hd, variant):
+    """bf16 at hd 64 and 128 launches the tensor-core kernel, every other
+    call the CUDA-core one; each raises its own count and the sum."""
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    assert kernel_variant(tdt, hd) == variant
+    q = torch.randn(8, 200, hd, device=card).to(tdt)
+    kv = torch.randn(2, 200, hd, device=card).to(tdt)
+    total = flash_attention_bhsd.launches
+    counts = dict(flash_attention_bhsd.variant_launches)
+    flash_attention_bhsd(q, kv, kv, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches == total + 1
+    want = {name: n + (name == variant) for name, n in counts.items()}
+    assert flash_attention_bhsd.variant_launches == want
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros(4, 8, 128, device=card)
+    before = flash_attention_bhsd.launches
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bhsd(q[..., :96].contiguous(), q[:2, :, :96].contiguous(),
                              q[:2, :, :96].contiguous())
@@ -72,6 +105,17 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         kt = torch.zeros(2, 128, 8, device=card).transpose(1, 2)
         flash_attention_bhsd(q, kt, kt)
+    # TMA reads from 16-byte-aligned bases: a contiguous view one element
+    # into its storage is refused, not handed to the other kernel
+    flat = torch.zeros(4 * 8 * 128 + 1, device=card, dtype=torch.bfloat16)
+    qm = flat[1:].view(4, 8, 128)
+    assert qm.is_contiguous() and qm.data_ptr() % 16
+    kb = torch.zeros(2, 8, 128, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention_bhsd(qm, kb, kb)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention_bhsd(kb.repeat(2, 1, 1), qm[:2], kb)
+    assert flash_attention_bhsd.launches == before     # nothing launched, nothing fell back
 
 
 # WKV: (b, s, h, hd) — tests/test_kernels.py::TestRwkvWkv's shapes and a
