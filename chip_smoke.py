@@ -11,7 +11,9 @@ a non-zero exit if it fails:
                ``nvcc`` per source, all started together; ptxas registers,
                spills and shared memory of each; ``cuobjdump -sass`` must
                show HGMMA (wgmma) and UTMALDG (TMA loads) in every
-               instantiation of the tensor-core flash kernel
+               instantiation of the tensor-core flash kernel, and HMMA
+               (mma.sync) and LDGSTS (cp.async) in every instantiation of
+               the chunked WKV kernel
 2. kernel      ``flash_attention_bhsd`` vs its plain version on the card, f32
                and bf16, causal both ways, at the test shapes, a ragged S=1000
                and every shape the later phases give it, each row naming the
@@ -21,11 +23,19 @@ a non-zero exit if it fails:
                TFLOP/s, share of the bound and the ratio to SDPA
 3. wkv         ``wkv_bhsd`` vs its plain version, out and state, f32 and bf16
                r/k/v with f32 w, two laws of w, nonzero s0, at the test
-               shapes, a ragged S=1000 and every prefill and decode shape
-               the RWKV phases give it (serve.main's 2 x 256 included); at
-               S >= 256 a planted fault (one step's k v^T update dropped);
-               one 4096 call against two 2048 calls with the state carried;
-               times at the one-layer prefill shape
+               shapes and a ragged S=1000 (contiguous [B,H,S,hd]) and at
+               every prefill and decode shape the RWKV phases give it
+               (serve.main's 2 x 256 included) in the layout
+               ``ops.rwkv_wkv`` gives it: [B,S,H,hd] tensors read through
+               transposed views.  Each row names the kernel that served
+               it (chunked or sequential) and, for bf16 at hd 64, holds
+               the other kernel to the same limits; at S >= 256 a planted
+               fault (one step's k v^T update dropped); one 4096 call
+               against two 2048 calls with the state carried; times at
+               the one-layer prefill shape (both kernels, in model layout
+               and on contiguous copies), at the decode steps
+               (S = 1), and at S = 1, 16, 32 and 64, where the wrapper's
+               choice of kernel changes
 4. prefill     full llama3_8b (32 layers, bf16, seeded random weights):
                ``prefill`` on 2 x 4096 tokens, 32 tensor-core kernel launches
                per call
@@ -38,17 +48,22 @@ a non-zero exit if it fails:
                ...])`` end to end — llama's main path, whose flash launches
                are counted
 7. rwkv        full rwkv6_1b6 (24 layers, bf16, seeded random weights):
-               ``prefill`` on 2 x 4096 tokens, 24 WKV launches per call; full
-               width, 4 layers, f32: prefill logits vs decode logits, both
-               through the kernel; a profiler window over one prefill call
-               and one decode step; ``serve.main(["--arch", "rwkv6_1b6",
-               "--production", ...])`` — RWKV's main path, whose WKV
-               launches are counted
+               ``prefill`` on 2 x 4096 tokens, 24 chunked WKV launches per
+               call; full width, 4 layers, f32: prefill logits vs decode
+               logits, both through the sequential kernel; a profiler window
+               over one prefill call and one decode step;
+               ``serve.main(["--arch", "rwkv6_1b6", "--production", ...])``
+               — RWKV's main path, whose WKV launches are counted by kernel
 8. kernels     the card's nvidia-smi line again, one JSON line listing every
                ported kernel, and the final ``{"ok": true, "device": ...}``.
+
+Prefill calls and profile windows are timed after a full garbage
+collection, and each reports the collector's seconds inside it; the
+``done`` line sums the collector's pauses over the run.
 """
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import subprocess
@@ -102,29 +117,67 @@ KERNEL_SHAPES = [
 # a dropped tile through at S=4096, where |output| is about 0.03.
 TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-5, 2.0 ** -7)}
 
-# WKV shapes (b, s, h, hd): the JAX kernel tests', a ragged S at the
-# rwkv6_1b6 heads, and what the RWKV phases give the kernel
+# WKV shapes (b, s, h, hd): the JAX kernel tests' and a ragged S at the
+# rwkv6_1b6 heads, contiguous; then what the RWKV phases give the kernel,
+# in model layout
 WKV_MAIN = (2, 4096, 32, 64)        # one rwkv6_1b6 prefill layer of phase 7
 RWKV_MAIN_PATH = (2, 256, 16)       # batch, prompt length, new tokens
 RWKV_CONSISTENCY = (2, 80)          # batch, length of the 4-layer f32 check
+WKV_MODEL_SHAPES = [WKV_MAIN,
+                    (*RWKV_MAIN_PATH[:2], 32, 64),  # serve.main's prefill
+                    (*RWKV_CONSISTENCY, 32, 64),    # the 4-layer f32 prefill
+                    (2, 1, 32, 64), (4, 1, 32, 64)]  # decode steps of batch 2 and 4
 WKV_SHAPES = [(1, 16, 1, 8), (2, 32, 2, 16), (1, 64, 4, 64), (2, 24, 2, 32),
-              (1, 1000, 32, 64),
-              WKV_MAIN,
-              (*RWKV_MAIN_PATH[:2], 32, 64),  # serve.main's prefill
-              (*RWKV_CONSISTENCY, 32, 64),    # the 4-layer f32 prefill
-              (2, 1, 32, 64), (4, 1, 32, 64)]  # decode steps of batch 2 and 4
-# (atol, rtol) of kernel vs plain.  out: the kernel sums the hd = 64
-# products r_i (S_ij + u_i k_i v_j) in a chain of FMAs, the plain version
-# in a batched matmul, in another order.  Once the state is in steady
-# state the partial sums reach about 25, so the two f32 results differ
-# by about 2**-24 * sqrt(2 * sum of squared partial sums) ~ 1e-5 (one
-# standard deviation), whatever |out| is: the atol of 2e-4 is 20 of them,
-# and rtol 1e-5 is tests/test_kernels.py's f32 bar.  bf16 out: both sides
-# round that f32 value once to bf16, so they differ by at most one bf16
-# ulp (at most 2**-7 of |plain|) plus the same f32 noise.  The state is
-# f32 in both cases; its update has no sum, so it keeps 1e-5.
+              (1, 1000, 32, 64), *WKV_MODEL_SHAPES]
+# (atol, rtol) of kernel vs plain.  out: the sequential kernel sums the
+# hd = 64 products r_i (S_ij + u_i k_i v_j) in a chain of FMAs, the plain
+# version in a batched matmul, in another order.  Once the state is in
+# steady state the partial sums reach about 25, so the two f32 results
+# differ by about 2**-24 * sqrt(2 * sum of squared partial sums) ~ 1e-5
+# (one standard deviation), whatever |out| is: the atol of 2e-4 is 20 of
+# them, and rtol 1e-5 is tests/test_kernels.py's f32 bar.  bf16 out: both
+# sides round an f32 value once to bf16, so they differ by at most one
+# bf16 ulp (at most 2**-7 of |plain|) plus f32 noise; the chunked kernel
+# (bf16 only) sums the same terms in 16-step chunks from bf16 parts of
+# its f32 operands, whose f32 error stays far below that ulp.  The state
+# is f32 in every case.  The sequential kernel updates each entry by one
+# multiply and one FMA a step, the plain version likewise, so they differ
+# by f32 rounding of a short chain: 1e-5.  The chunked kernel's update is
+# a sum over a chunk's 16 steps of products with k*E split into three
+# bf16 parts, which keeps f32 precision
+# (tests/test_torch_wkv_numerics.py: 0.02-0.03 of this limit); the limit
+# stays 1e-5.
 WKV_TOL = {"f32": (2e-4, 1e-5), "bf16": (2e-4, 2.0 ** -7)}
 WKV_STATE_TOL = (1e-5, 1e-5)
+WKV_DECODE = (4, 1, 32, 64)         # one decode step of batch 4
+
+
+# Python's collector pauses in this process, (generation, seconds) each: a
+# full collection of a large heap stalls the host for up to a second or
+# more, and one that lands in a timed call shows as a slow call
+GC_PAUSES: list = []
+_gc_start = [0.0]
+
+
+def _gc_timer(phase: str, info: dict) -> None:
+    if phase == "start":
+        _gc_start[0] = time.perf_counter()
+    else:
+        GC_PAUSES.append((info["generation"], time.perf_counter() - _gc_start[0]))
+
+
+def timed_call(fn):
+    """(result, wall seconds, seconds of Python garbage collection inside)
+    of one call, after a full collection so that the work of earlier
+    phases is not collected inside the timed call."""
+    gc.collect()
+    torch.cuda.synchronize()
+    n = len(GC_PAUSES)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, sum(p for _, p in GC_PAUSES[n:])
 
 
 def emit(phase: str, **fields) -> None:
@@ -200,6 +253,15 @@ def phase_build() -> None:
     check(len(sass) == len(fa.WGMMA_HEAD_DIMS) and
           all(n > 0 for counts in sass.values() for n in counts.values()),
           f"the tensor-core flash kernel lacks HGMMA or UTMALDG in its SASS: {sass}")
+    lib = _build.load_library("rwkv_wkv")
+    emit("build", kernel="rwkv_wkv", chunked_dynamic_smem_bytes={
+        f"{'bf16' if bw else 'f32'}_w": lib.repro_wkv_chunked_smem_bytes(bw) for bw in (0, 1)})
+    sass = sass_instructions("rwkv_wkv", "wkv_fwd_chunked_kernel",
+                             ("HMMA", "LDSM", "LDGSTS", "HGMMA", "UTMALDG", "LDL", "STL"))
+    emit("build", kernel="rwkv_wkv", sass=sass)
+    check(len(sass) == 2 and
+          all(c["HMMA"] > 0 and c["LDGSTS"] > 0 for c in sass.values()),
+          f"the chunked WKV kernel lacks HMMA or LDGSTS in its SASS: {sass}")
 
 
 def sass_instructions(source: str, kernel: str, opcodes) -> dict:
@@ -312,20 +374,23 @@ def phase_kernel() -> tuple[dict, list]:
     return timed, rows
 
 
-def wkv_inputs(b, s, h, hd, dtype, w_law, gen):
+def wkv_inputs(b, s, h, hd, dtype, w_law, gen, model_layout=False):
     """r/k/v/w [B,H,S,hd], u [H,hd], s0 [B,H,hd,hd] f32 on the card.
 
     ``dtype`` "f32": all f32; "bf16": bf16 r/k/v/u with f32 w and s0, the
     model's mix.  w is drawn per element, by the JAX kernel tests' law
     ("uniform": U(0.2, 0.95)) or the model's ("model":
-    exp(-min(exp(N(0,1)), 8)))."""
-    shape = (b, h, s, hd)
+    exp(-min(exp(N(0,1)), 8))).  ``model_layout``: r/k/v/w are views of
+    contiguous [B,S,H,hd] tensors, as ``ops.rwkv_wkv`` passes them."""
+    shape = (b, s, h, hd) if model_layout else (b, h, s, hd)
     io = torch.float32 if dtype == "f32" else torch.bfloat16
     r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(io) for _ in range(3))
     if w_law == "uniform":
         w = 0.2 + 0.75 * torch.rand(shape, generator=gen, device="cuda")
     else:
         w = torch.exp(-torch.randn(shape, generator=gen, device="cuda").exp().clamp(max=8.0))
+    if model_layout:
+        r, k, v, w = (x.transpose(1, 2) for x in (r, k, v, w))
     u = torch.randn((h, hd), generator=gen, device="cuda").to(io)
     s0 = torch.randn((b, h, hd, hd), generator=gen, device="cuda")
     return r, k, v, w, u, s0
@@ -346,38 +411,109 @@ def planted_wkv_fault(r, k, v, w, u, s0):
     return torch.cat([o1, o2, o3], dim=2)
 
 
+def wkv_bytes_ms(b, h, s, hd, io_bytes, w_bytes) -> float:
+    """r/k/v/w/u/s0 read once and out/sT written once over HBM (ms)."""
+    return (b * h * s * hd * (4 * io_bytes + w_bytes) + h * hd * io_bytes
+            + 2 * b * h * hd * hd * 4) / PEAK_BYTES * 1e3
+
+
 def wkv_bound_ms(b, h, s, hd, io_bytes, w_bytes) -> tuple[float, str]:
     """Least time for the work: 5 hd^2 f32 operations per (b, h, t) on the
     CUDA cores (r.S is hd^2 FMAs; the update one multiply and one FMA per
-    element), or r/k/v/w/u/s0 read once and out/sT written once over HBM."""
-    t_ops = 5 * hd * hd * b * h * s / PEAK_FLOPS["f32"]
-    t_bytes = (b * h * s * hd * (4 * io_bytes + w_bytes) + h * hd * io_bytes
-               + 2 * b * h * hd * hd * 4) / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    element), or the bytes of :func:`wkv_bytes_ms`."""
+    t_ops = 5 * hd * hd * b * h * s / PEAK_FLOPS["f32"] * 1e3
+    t_bytes = wkv_bytes_ms(b, h, s, hd, io_bytes, w_bytes)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def wkv_tensor_flops(b, h, s, hd) -> int:
+    """The chunked kernel's tensor-core operations: per 16-step chunk and
+    16 value columns, S^T (r*P)^T in three bf16 products (16 x 16 x hd),
+    V^T A^T in two (16 x 16 x 16) and V^T (k*E) in three (16 x hd x 16).
+    Work of the chunked form, beyond the recurrence's 5 hd^2 per step."""
+    per_chunk = 2 * (3 * 16 * 16 * hd + 2 * 16 * 16 * 16 + 3 * 16 * hd * 16)
+    return per_chunk * (hd // 16) * b * h * -(-s // 16)
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time per call of the kernels whose name contains ``kernel``,
+    from ``torch.profiler``: for launches too short for CUDA events around
+    a host-bound loop."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):      # the profiler has been seen to drop launches; retry
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key:
+                us = getattr(e, "self_device_time_total", None)
+                total += e.self_cuda_time_total if us is None else us
+                count += e.count
+        if count == reps:
+            return total / 1e3 / reps
+        seen.append(count)
+        emit("profiler_retry", kernel=kernel, seen=count, want=reps)
+    raise RuntimeError(f"profiler saw {seen} launches of {kernel} in three tries, want {reps}")
+
+
+_WKV_KERNEL = {"chunked": "wkv_fwd_chunked_kernel", "sequential": "wkv_fwd_kernel"}
+
+
+def wkv_served(args):
+    """(out, sT, variant) of one wrapper call, the variant read from the
+    launch counts."""
+    before = dict(wkv.wkv_bhsd.variant_launches)
+    out, sT = wkv.wkv_bhsd(*args)
+    served = [n for n, c in wkv.wkv_bhsd.variant_launches.items() if c != before[n]]
+    return out, sT, served[0] if len(served) == 1 else served
 
 
 def phase_wkv() -> tuple[dict, list]:
-    """WKV kernel vs plain at every shape, dtype and law of w; state
-    carried across two calls; times at the one-layer prefill shape."""
+    """WKV kernels vs plain at every shape, dtype and law of w; state
+    carried across two calls; times at the one-layer prefill shape, the
+    decode steps and the lengths where the wrapper's choice changes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     timed, rows = {}, []
     for b, s, h, hd in WKV_SHAPES:
+        model_layout = (b, s, h, hd) in WKV_MODEL_SHAPES
         for dtype in ("f32", "bf16"):
             for w_law in ("uniform", "model"):
-                args = wkv_inputs(b, s, h, hd, dtype, w_law, gen)
-                out, sT = wkv.wkv_bhsd(*args)
+                args = wkv_inputs(b, s, h, hd, dtype, w_law, gen, model_layout)
+                out, sT, variant = wkv_served(args)
                 ref, sT_ref = wkv.wkv_bhsd_plain(*args)
                 torch.cuda.synchronize()
                 out, ref = out.float(), ref.float()
                 atol, rtol = WKV_TOL[dtype]
                 satol, srtol = WKV_STATE_TOL
-                row = dict(shape=[b, s, h, hd], dtype=dtype, w_law=w_law,
+                row = dict(shape=[b, s, h, hd], dtype=dtype, w_law=w_law, variant=variant,
+                           layout="model [B,S,H,hd]" if model_layout else "[B,H,S,hd]",
                            max_abs_err=float((out - ref).abs().max()),
                            state_max_abs_err=float((sT - sT_ref).abs().max()),
                            atol=atol, rtol=rtol,
                            limit_ratio=limit_ratio(out, ref, atol, rtol),
                            state_limit_ratio=limit_ratio(sT, sT_ref, satol, srtol))
-                row["ok"] = row["limit_ratio"] <= 1 and row["state_limit_ratio"] <= 1
+                check(variant == wkv.kernel_variant(args[0].dtype, args[3].dtype, hd, s),
+                      f"launch counts show {variant} serving {row}")
+                if dtype == "bf16" and hd == wkv.CHUNKED_HEAD_DIM:
+                    # the kernel the wrapper did not pick, on the same inputs
+                    other = "sequential" if variant == "chunked" else "chunked"
+                    o2, s2 = wkv.launch(other, *args[:4], args[4].float(), args[5])
+                    torch.cuda.synchronize()
+                    o2 = o2.float()
+                    row.update(other_variant=other,
+                               other_max_abs_err=float((o2 - ref).abs().max()),
+                               other_state_max_abs_err=float((s2 - sT_ref).abs().max()),
+                               other_limit_ratio=limit_ratio(o2, ref, atol, rtol),
+                               other_state_limit_ratio=limit_ratio(s2, sT_ref, satol, srtol))
+                    del o2, s2
+                row["ok"] = all(row.get(key, 0) <= 1 for key in (
+                    "limit_ratio", "state_limit_ratio", "other_limit_ratio",
+                    "other_state_limit_ratio"))
                 if s >= 256:
                     bad = planted_wkv_fault(*args).float()
                     row["fault_max_abs_err"] = float((bad - ref).abs().max())
@@ -386,8 +522,7 @@ def phase_wkv() -> tuple[dict, list]:
                     del bad
                 if (b, s, h, hd) == WKV_MAIN and w_law == "model":
                     half = s // 2
-                    sl = lambda a, c: [x[:, :, a:c].contiguous()  # noqa: E731
-                                       for x in args[:4]]
+                    sl = lambda a, c: [x[:, :, a:c] for x in args[:4]]  # noqa: E731
                     o1, s_mid = wkv.wkv_bhsd(*sl(0, half), args[4], args[5])
                     o2, s_end = wkv.wkv_bhsd(*sl(half, s), args[4], s_mid)
                     two = torch.cat([o1, o2], dim=2).float()
@@ -401,24 +536,39 @@ def phase_wkv() -> tuple[dict, list]:
                     if dtype == "bf16":
                         row.update(wkv_times(args))
                     timed[dtype] = row
+                if s == 1 and dtype == "bf16" and w_law == "model":
+                    row.update(wkv_decode_times(args))
+                    timed[("decode", b)] = row
                 emit("wkv", **row)
                 rows.append(row)
-                check(row["ok"], f"wkv_bhsd disagrees with its plain version: {row}")
+                check(row["ok"], f"a WKV kernel disagrees with its plain version: {row}")
                 check(row.get("fault_rejected", True),
                       f"the limit lets a dropped k v^T update through: {row}")
                 check(row.get("two_calls_ok", True),
                       f"two calls with the state carried differ from one: {row}")
                 del args, out, ref, sT, sT_ref
+    wkv_choice_times(gen)
     return timed, rows
 
 
 def wkv_times(args) -> dict:
-    """Kernel, plain version and the port's torch-only chunked form at
-    the shape of ``args``; bound from this shape's work."""
+    """Both kernels on ``args`` (model layout, as the main path gives
+    them) and on contiguous copies, the plain version and the port's
+    torch-only chunked form; bound from this shape's work."""
     r, k, v, w, u, s0 = args
     b, h, s, hd = r.shape
+    uf = u.float()
+    dense = [x.contiguous() for x in (r, k, v, w)]
     row = dict(kernel_ms=time_ms(lambda: wkv.wkv_bhsd(*args), 20),
+               # the earlier design on the same inputs, through its C entry
+               sequential_kernel_ms=time_ms(
+                   lambda: wkv.launch("sequential", r, k, v, w, uf, s0), 5),
+               contiguous_kernel_ms=time_ms(
+                   lambda: wkv.launch("chunked", *dense, uf, s0), 20),
+               sequential_contiguous_kernel_ms=time_ms(
+                   lambda: wkv.launch("sequential", *dense, uf, s0), 5),
                plain_ms=time_ms(lambda: wkv.wkv_bhsd_plain(*args), 2))
+    del dense
     # for later PRs: the port's torch-only chunked form (the JAX model's
     # prefill formulation) at the same shape, in its model layout.  Not a
     # library call and not used on the card: no PyTorch call computes WKV.
@@ -427,7 +577,44 @@ def wkv_times(args) -> dict:
     row["library_ms"] = None
     row["bound_ms"], row["bound_by"] = wkv_bound_ms(
         b, h, s, hd, r.element_size(), w.element_size())
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    # the bytes alone: the floor of a kernel that runs the operations on
+    # the tensor cores, as the chunked one does
+    row["bytes_bound_ms"] = wkv_bytes_ms(b, h, s, hd, r.element_size(), w.element_size())
+    row["bytes_bound_share"] = row["bytes_bound_ms"] / row["kernel_ms"]
+    row["tensor_gflop"] = wkv_tensor_flops(b, h, s, hd) / 1e9
+    row["tensor_tflops"] = wkv_tensor_flops(b, h, s, hd) / row["kernel_ms"] / 1e9
+    row["sequential_over_chunked"] = row["sequential_kernel_ms"] / row["kernel_ms"]
     return row
+
+
+def wkv_decode_times(args) -> dict:
+    """The S = 1 decode step: the wrapper's kernel (device time from the
+    profiler), the plain version and the bound."""
+    r, k, v, w, u, s0 = args
+    b, h, s, hd = r.shape
+    variant = wkv.kernel_variant(r.dtype, w.dtype, hd, s)
+    row = dict(kernel_ms=device_ms(lambda: wkv.wkv_bhsd(*args), 50, _WKV_KERNEL[variant]),
+               plain_ms=time_ms(lambda: wkv.wkv_bhsd_plain(*args), 20), library_ms=None)
+    row["bound_ms"], row["bound_by"] = wkv_bound_ms(
+        b, h, s, hd, r.element_size(), w.element_size())
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+def wkv_choice_times(gen) -> None:
+    """Both kernels at S = 1, 16, 32 and 64 (batch 4, the model's heads, bf16):
+    where the chunked kernel starts to pay, which sets CHUNKED_MIN_SEQ."""
+    for s in (1, 16, 32, 64):
+        b, h, hd = WKV_DECODE[0], WKV_DECODE[2], WKV_DECODE[3]
+        r, k, v, w, u, s0 = wkv_inputs(b, s, h, hd, "bf16", "model", gen)
+        uf = u.float()
+        times = {name: device_ms(lambda n=name: wkv.launch(n, r, k, v, w, uf, s0), 50,
+                                 _WKV_KERNEL[name])
+                 for name in wkv.VARIANTS}
+        emit("wkv_choice", shape=[b, s, h, hd], kernel_ms=times,
+             wrapper_picks=wkv.kernel_variant(r.dtype, w.dtype, hd, s),
+             chunked_min_seq=wkv.CHUNKED_MIN_SEQ)
 
 
 def phase_prefill(model) -> dict:
@@ -436,14 +623,12 @@ def phase_prefill(model) -> dict:
     b, s = PREFILL
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    launches, secs = [], []
+    launches, secs, gc_secs = [], [], []
     for _ in range(2):          # the first call also warms cuBLAS up
         fa.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = serve.prefill(model, tokens)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
+        logits, sec, gc_sec = timed_call(lambda: serve.prefill(model, tokens))
+        secs.append(sec)
+        gc_secs.append(gc_sec)
         launches.append(dict(fa.flash_attention_bhsd.variant_launches))
         check(tuple(logits.shape) == (b, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
@@ -456,7 +641,7 @@ def phase_prefill(model) -> dict:
     kv = torch.randn((b * cfg.n_kv_heads, s, cfg.hd), generator=gen, device="cuda").bfloat16()
     attn_ms = time_ms(lambda: fa.flash_attention_bhsd(q, kv, kv, causal=True), 5)
     row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, dtype="bf16",
-               launches_per_call=launches, seconds=secs,
+               launches_per_call=launches, seconds=secs, gc_seconds_in_calls=gc_secs,
                tokens_per_s=b * s / secs[-1], peak_memory_gb=peak / 1e9,
                attention_kernel_ms_per_layer=attn_ms,
                attention_share=attn_ms * cfg.n_layers / 1e3 / secs[-1])
@@ -522,19 +707,15 @@ def phase_serve(model) -> dict:
     return row
 
 
-def profile_window(fn, reps: int) -> dict:
+def profile_window(fn, reps: int, top: int = 6) -> dict:
     """Wall time per call unprofiled, then device time per call and the
     top kernels from ``torch.profiler`` over the same calls.  The
     device-busy share compares the two: the profiler's own host cost
     does not enter the wall time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    _, secs, gc_secs = timed_call(lambda: [fn() for _ in range(reps)])
+    wall_ms = secs * 1e3 / reps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -550,10 +731,10 @@ def profile_window(fn, reps: int) -> dict:
             us = e.self_cuda_time_total
         per_name[e.key] = per_name.get(e.key, 0.0) + us / 1e3 / reps
     device_ms = sum(per_name.values())
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(reps=reps, wall_ms=wall_ms, device_ms=device_ms,
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(reps=reps, wall_ms=wall_ms, gc_ms_in_wall=gc_secs * 1e3, device_ms=device_ms,
                 device_busy_share=device_ms / wall_ms,
-                top_device_ms=[[name[:80], ms] for name, ms in top])
+                top_device_ms=[[name[:80], ms] for name, ms in ranked])
 
 
 def phase_profile(model) -> None:
@@ -606,9 +787,67 @@ def flash_row(main_row: dict, checks: list, variant: str, launches: int, path: s
     }
 
 
+def wkv_row(timed_row: dict, checks: list, variant: str, launches: int, path: str,
+            **extra) -> dict:
+    """The kernels-line entry of one WKV kernel: errors over every phase-3
+    row it computed (served by the wrapper or launched beside the other
+    kernel), times at the shape the main path gives it."""
+    errs = [(r["dtype"], r["max_abs_err"], r["state_max_abs_err"], r["limit_ratio"],
+             r["state_limit_ratio"]) for r in checks if r["variant"] == variant]
+    errs += [(r["dtype"], r["other_max_abs_err"], r["other_state_max_abs_err"],
+              r["other_limit_ratio"], r["other_state_limit_ratio"])
+             for r in checks if r.get("other_variant") == variant]
+    mine = [r for r in checks if r["variant"] == variant]
+    row = {
+        "name": f"wkv_bhsd[{variant}]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv_wkv.py:61",
+        "launches": launches,
+        "launches_counted_on": path,
+        "serves": (f"bf16 r/k/v at hd 64, S >= {wkv.CHUNKED_MIN_SEQ}" if variant == "chunked"
+                   else f"the rest: f32 r/k/v, hd 8-32, bf16 at S < {wkv.CHUNKED_MIN_SEQ}"),
+        "max_abs_err": max(e[1] for e in errs),
+        "max_abs_err_by_dtype": {d: max(e[1] for e in errs if e[0] == d)
+                                 for d in WKV_TOL if any(e[0] == d for e in errs)},
+        "state_max_abs_err": max(e[2] for e in errs),
+        "tol": {d: {"atol": a, "rtol": r} for d, (a, r) in WKV_TOL.items()},
+        "state_tol": {"atol": WKV_STATE_TOL[0], "rtol": WKV_STATE_TOL[1]},
+        "limit_ratio": max(e[3] for e in errs),
+        "state_limit_ratio": max(e[4] for e in errs),
+        "fault_limit_ratio_min": min((r["fault_limit_ratio"] for r in mine
+                                      if "fault_limit_ratio" in r), default=None),
+        "two_calls_bit_equal": all(r["two_calls_bit_equal"] for r in mine
+                                   if "two_calls_bit_equal" in r),
+        "checked_shapes": sorted({tuple(r["shape"]) for r in mine}),
+        "checked_layouts": sorted({r["layout"] for r in checks if variant in (
+            r["variant"], r.get("other_variant"))}),
+        "ms": timed_row["kernel_ms"],
+        "plain_ms": timed_row["plain_ms"],
+        "bound_ms": timed_row["bound_ms"],
+        "bound_by": timed_row["bound_by"],
+        "library_ms": None,          # no PyTorch call computes WKV
+        "bound_share": timed_row["bound_share"],
+        "shape": timed_row["shape"],
+        "dtype": "bf16 r/k/v/out, f32 w",
+    }
+    if variant == "chunked":
+        row.update({key: timed_row[key] for key in (
+            "bytes_bound_ms", "bytes_bound_share", "tensor_gflop", "tensor_tflops",
+            "sequential_kernel_ms", "sequential_over_chunked", "contiguous_kernel_ms",
+            "sequential_contiguous_kernel_ms", "torch_chunked_ms")})
+    if "at_prefill_ms" in extra:
+        row["ms_at_prefill_shape"] = extra["at_prefill_ms"]
+    if "decode_batch4" in extra:
+        d = extra["decode_batch4"]
+        row["decode_batch4"] = {key: d[key] for key in ("shape", "kernel_ms", "plain_ms",
+                                                        "bound_ms", "bound_by")}
+    return row
+
+
 def reset_launches() -> None:
     fa.reset_launch_counts()
-    wkv.wkv_bhsd.launches = 0
+    wkv.reset_launch_counts()
 
 
 def phase_main_path() -> int:
@@ -631,28 +870,26 @@ def phase_main_path() -> int:
 
 
 def phase_rwkv_prefill(model, wkv_ms: float) -> dict:
-    """Full rwkv6_1b6 prefill: one WKV launch per layer; ``wkv_ms`` is
-    phase 3's kernel time at this call's one-layer shape."""
+    """Full rwkv6_1b6 prefill: one chunked WKV launch per layer; ``wkv_ms``
+    is phase 3's kernel time at this call's one-layer shape."""
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     b, s = PREFILL
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    launches, secs = [], []
+    launches, secs, gc_secs = [], [], []
     for _ in range(2):          # the first call also warms cuBLAS up
-        wkv.wkv_bhsd.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = serve.prefill(model, tokens)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        launches.append(wkv.wkv_bhsd.launches)
+        wkv.reset_launch_counts()
+        logits, sec, gc_sec = timed_call(lambda: serve.prefill(model, tokens))
+        secs.append(sec)
+        gc_secs.append(gc_sec)
+        launches.append(dict(wkv.wkv_bhsd.variant_launches))
         check(tuple(logits.shape) == (b, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "rwkv prefill logits are not finite")
-        check(launches[-1] == cfg.n_layers,
-              f"{launches[-1]} WKV launches in one prefill, want {cfg.n_layers}")
+        check(launches[-1] == {"chunked": cfg.n_layers, "sequential": 0},
+              f"WKV launches in one prefill {launches[-1]}, want {cfg.n_layers} chunked")
     row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, dtype="bf16",
-               launches_per_call=launches, seconds=secs,
+               launches_per_call=launches, seconds=secs, gc_seconds_in_calls=gc_secs,
                tokens_per_s=b * s / secs[-1],
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                wkv_kernel_ms_per_layer=wkv_ms,
@@ -669,23 +906,26 @@ def phase_rwkv_consistency(cfg_full) -> None:
     model = LM(cfg, param_dtype=torch.float32, seed=SEED, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
-    wkv.wkv_bhsd.launches = 0
+    wkv.reset_launch_counts()
     last = serve.prefill(model, tokens)
-    check(wkv.wkv_bhsd.launches == cfg.n_layers, "rwkv prefill missed the kernel")
+    prefill_launches = dict(wkv.wkv_bhsd.variant_launches)
+    check(prefill_launches == {"chunked": 0, "sequential": cfg.n_layers},
+          f"f32 rwkv prefill WKV launches {prefill_launches}, want {cfg.n_layers} sequential")
     with torch.no_grad():
         full = model(tokens)
-        wkv.wkv_bhsd.launches = 0
+        wkv.reset_launch_counts()
         cache = model.init_cache(b, s, dtype=torch.float32)
         worst = 0.0
         for t in range(s):
             logits, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
             worst = max(worst, float((logits[:, 0] - full[:, t]).abs().max()))
-    decode_launches = wkv.wkv_bhsd.launches
+    decode_launches = wkv.wkv_bhsd.variant_launches["sequential"]
     err_last = float((logits[:, 0] - last).abs().max())
     emit("rwkv_consistency", layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s,
          dtype="f32", max_abs_err_last=err_last, max_abs_err_all_positions=worst,
-         decode_launches=decode_launches, tol=2e-3)
-    check(decode_launches == cfg.n_layers * s, "rwkv decode missed the kernel")
+         prefill_launches=prefill_launches, decode_launches=decode_launches, tol=2e-3)
+    check(decode_launches == wkv.wkv_bhsd.launches == cfg.n_layers * s,
+          "rwkv decode missed the sequential kernel")
     check(err_last < 2e-3 and worst < 2e-3,
           f"rwkv prefill vs decode logits differ: last {err_last}, all {worst}")
     del model, cache, full
@@ -698,7 +938,7 @@ def phase_rwkv_profile(model) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
     emit("rwkv_profile", step="prefill", batch=PREFILL[0], seq=PREFILL[1],
-         **profile_window(lambda: serve.prefill(model, tokens), 1))
+         **profile_window(lambda: serve.prefill(model, tokens), 1, top=12))
     cache = model.init_cache(4, 1, dtype=torch.float32)
     tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen, device="cuda")
     with torch.no_grad():
@@ -706,10 +946,11 @@ def phase_rwkv_profile(model) -> None:
         emit("rwkv_profile", step="decode", batch=4, **profile_window(step, 10))
 
 
-def phase_rwkv_main_path() -> int:
-    """``serve.main --arch rwkv6_1b6 --production``: one WKV launch per
-    layer for the prefill, and one per layer for each of the prompt's
-    teacher-forced decode steps and each new token."""
+def phase_rwkv_main_path() -> dict:
+    """``serve.main --arch rwkv6_1b6 --production``: one chunked WKV
+    launch per layer for the prefill, and one sequential launch per layer
+    for each of the prompt's teacher-forced decode steps and each new
+    token."""
     batch, plen, new = RWKV_MAIN_PATH
     argv = ["--arch", "rwkv6_1b6", "--production", "--batch", str(batch),
             "--prompt-len", str(plen), "--tokens", str(new)]
@@ -717,13 +958,14 @@ def phase_rwkv_main_path() -> int:
     t0 = time.perf_counter()
     rc = serve.main(argv)
     torch.cuda.synchronize()
-    launches = wkv.wkv_bhsd.launches
+    launches = dict(wkv.wkv_bhsd.variant_launches)
     emit("rwkv_serve_main", argv=argv, rc=rc, seconds=time.perf_counter() - t0,
          kernel_launches=launches, flash_launches=fa.flash_attention_bhsd.launches)
     check(rc == 0, f"serve.main exited {rc}")
     n_layers = get_config("rwkv6_1b6").n_layers
-    want = n_layers + n_layers * (plen + new)
-    check(launches == want, f"{launches} WKV launches on the RWKV main path, want {want}")
+    want = {"chunked": n_layers, "sequential": n_layers * (plen + new)}
+    check(launches == want and wkv.wkv_bhsd.launches == sum(want.values()),
+          f"WKV launches on the RWKV main path {launches}, want {want}")
     check(fa.flash_attention_bhsd.launches == 0, "the RWKV path launched flash attention")
     return launches
 
@@ -734,6 +976,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    gc.callbacks.append(_gc_timer)
     smi = phase_env()
     print(smi, flush=True)
     phase_build()
@@ -764,36 +1007,18 @@ def main() -> int:
                          "every llama3_8b prefill (serve.main --production)"),
                flash_row(timed["f32"], checks, "cuda_core", cuda_core_launches,
                          "the 4-layer f32 prefill of phase 5")]
-    kernels.append({
-        "name": "wkv_bhsd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
-        "replaces": "src/repro/kernels/rwkv_wkv.py:61",
-        "launches": wkv_launches,
-        # worst over every shape, dtype and law of w of phase 3
-        "max_abs_err": max(r["max_abs_err"] for r in wkv_checks),
-        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in wkv_checks
-                                        if r["dtype"] == d) for d in WKV_TOL},
-        "state_max_abs_err": max(r["state_max_abs_err"] for r in wkv_checks),
-        "tol": {d: {"atol": a, "rtol": r} for d, (a, r) in WKV_TOL.items()},
-        "state_tol": {"atol": WKV_STATE_TOL[0], "rtol": WKV_STATE_TOL[1]},
-        "limit_ratio": max(r["limit_ratio"] for r in wkv_checks),
-        "state_limit_ratio": max(r["state_limit_ratio"] for r in wkv_checks),
-        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in wkv_checks
-                                     if "fault_limit_ratio" in r),
-        "two_calls_bit_equal": all(r["two_calls_bit_equal"] for r in wkv_checks
-                                   if "two_calls_bit_equal" in r),
-        "checked_shapes": [list(sh) for sh in WKV_SHAPES],
-        "ms": wkv_timed["bf16"]["kernel_ms"],
-        "plain_ms": wkv_timed["bf16"]["plain_ms"],
-        "bound_ms": wkv_timed["bf16"]["bound_ms"],
-        "bound_by": wkv_timed["bf16"]["bound_by"],
-        "library_ms": None,          # no PyTorch call computes WKV
-        "torch_chunked_ms": wkv_timed["bf16"]["torch_chunked_ms"],
-        "shape": list(WKV_MAIN),
-        "dtype": "bf16 r/k/v/out, f32 w",
-    })
-    emit("done", seconds=time.perf_counter() - t_start)
+    main_decode = (RWKV_MAIN_PATH[0], 1, *WKV_MAIN[2:])
+    kernels += [wkv_row(wkv_timed["bf16"], wkv_checks, "chunked", wkv_launches["chunked"],
+                        "every rwkv6_1b6 bf16 prefill (serve.main --production)"),
+                wkv_row(wkv_timed[("decode", main_decode[0])], wkv_checks, "sequential",
+                        wkv_launches["sequential"],
+                        "every rwkv6_1b6 decode step (serve.main --production)",
+                        at_prefill_ms=wkv_timed["bf16"]["sequential_kernel_ms"],
+                        decode_batch4=wkv_timed[("decode", WKV_DECODE[0])])]
+    emit("done", seconds=time.perf_counter() - t_start, gc_collections=len(GC_PAUSES),
+         gc_full_collections=sum(g == 2 for g, _ in GC_PAUSES),
+         gc_seconds=sum(p for _, p in GC_PAUSES),
+         gc_max_pause_s=max((p for _, p in GC_PAUSES), default=0.0))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,11 +24,14 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 def rwkv_wkv(r, k, v, w, u, s0=None) -> tuple[torch.Tensor, torch.Tensor]:
     """WKV recurrence in model layout. r/k/v/w [B,S,H,hd]; u [H,hd];
-    s0 [B,H,hd,hd] f32 (None: zeros).  Returns (out [B,S,H,hd], sT)."""
+    s0 [B,H,hd,hd] f32 (None: zeros).  Returns (out [B,S,H,hd], sT).
+
+    The kernels read the [B,H,S,hd] views in place and write out in r's
+    layout, so no operand is copied and, for a contiguous r, out is a
+    contiguous [B,S,H,hd] tensor."""
     b, s, h, hd = r.shape
     if s0 is None:
         s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
-    # .contiguous(): the [B,H,S,hd] view of a [B,S,H,hd] tensor is strided
-    tr = lambda t: t.transpose(1, 2).contiguous()  # noqa: E731
+    tr = lambda t: t.transpose(1, 2)  # noqa: E731
     out, sT = wkv_bhsd(tr(r), tr(k), tr(v), tr(w), u, s0)
     return out.transpose(1, 2), sT

@@ -16,8 +16,13 @@ WKV out: rtol 1e-5 in f32 and 2**-7 in bf16 on the same grounds, and an
 atol of 2e-4 in both, 20 standard deviations of the f32 difference
 between two summation orders of the 64 products r_i (S_ij + u_i k_i v_j),
 whose partial sums reach about 25 once the state is in steady state.
-The WKV state is f32 in every case and has no sum: 1e-5.
+The WKV state is f32 in every case: 1e-5.  The sequential WKV kernel
+updates it one step at a time; the chunked one sums 16 steps' updates
+from bf16 parts of k*E that keep f32 precision, which
+tests/test_torch_wkv_numerics.py rehearses at the same limit.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +30,9 @@ import torch
 from repro_torch.kernels import (flash_attention_bhsd, flash_attention_bhsd_plain,
                                  rwkv_wkv, wkv_bhsd, wkv_bhsd_plain)
 from repro_torch.kernels.flash_attention import kernel_variant
+
+# the module: the package's ``rwkv_wkv`` is the model-layout function
+wkvk = importlib.import_module("repro_torch.kernels.rwkv_wkv")
 
 _SHAPES = [
     (1, 32, 2, 2, 16),      # MHA
@@ -130,15 +138,21 @@ def _wkv_inputs(b, s, h, hd, dtype, w_law, seed, device):
     """r/k/v/w [B,H,S,hd], u [H,hd], s0 [B,H,hd,hd] f32, from numpy.
 
     w is drawn per element, so a state transposed between key and value
-    axes would fail.  ``dtype`` "bf16" gives bf16 r/k/v/u with f32 w (the
-    model's mix), "bf16w" bf16 w as well."""
+    axes would fail: "uniform" U(0.2, 0.95), "model" the model's law
+    exp(-min(exp(N(0,1)), 8)), "extreme" a tenth of zeros and the rest
+    about e^-8, so that products over a chunk underflow.  ``dtype`` "bf16"
+    gives bf16 r/k/v/u with f32 w (the model's mix), "bf16w" bf16 w as
+    well."""
     rng = np.random.default_rng(seed)
     shape = (b, h, s, hd)
     r, k, v = (rng.normal(size=shape) for _ in range(3))
     if w_law == "uniform":
         w = rng.uniform(0.2, 0.95, size=shape)
-    else:       # the model's law: exp(-min(exp(N(0,1)), 8))
+    elif w_law == "model":
         w = np.exp(-np.minimum(np.exp(rng.normal(size=shape)), 8.0))
+    else:
+        w = np.where(rng.uniform(size=shape) < 0.1, 0.0,
+                     np.exp(-8.0 * rng.uniform(0.9, 1.0, size=shape)))
     u = rng.normal(size=(h, hd))
     s0 = rng.normal(size=(b, h, hd, hd))
     io = torch.float32 if dtype == "f32" else torch.bfloat16
@@ -151,6 +165,10 @@ def _wkv_inputs(b, s, h, hd, dtype, w_law, seed, device):
 def _close(out, ref, tol):
     atol, rtol = tol
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def _counts():
+    return wkv_bhsd.launches, dict(wkv_bhsd.variant_launches)
 
 
 @pytest.mark.cuda
@@ -171,23 +189,119 @@ def test_wkv_kernel_matches_plain(card, b, s, h, hd, dtype, w_law):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [1000, 80, 33, 16, 5, 1])
+@pytest.mark.parametrize("dtype", ["bf16", "bf16w"])
+@pytest.mark.parametrize("w_law", ["uniform", "model", "extreme"])
+def test_wkv_chunked_kernel_matches_plain(card, s, dtype, w_law):
+    """The chunked kernel at ragged S and S below its 16-step chunk (those
+    launched directly: the wrapper sends them to the sequential kernel),
+    with w = 0 entries and decays that underflow within a chunk."""
+    args = _wkv_inputs(2, s, 4, 64, dtype, w_law, s + len(w_law), card)
+    ref, sT_ref = wkv_bhsd_plain(*args)
+    u = args[4].float()
+    out, sT = wkvk.launch("chunked", *args[:4], u, args[5])
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+    _close(out, ref, _WKV_TOL["bf16"])
+    _close(sT, sT_ref, _STATE_TOL)
+    if s >= wkvk.CHUNKED_MIN_SEQ:
+        total, counts = _counts()
+        out, sT = wkv_bhsd(*args)
+        assert wkv_bhsd.launches == total + 1
+        assert wkv_bhsd.variant_launches["chunked"] == counts["chunked"] + 1
+        _close(out, ref, _WKV_TOL["bf16"])
+        _close(sT, sT_ref, _STATE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,s,variant", [
+    ("bf16", 64, 4096, "chunked"), ("bf16w", 64, 300, "chunked"),
+    ("bf16", 64, wkvk.CHUNKED_MIN_SEQ, "chunked"),
+    ("bf16", 64, wkvk.CHUNKED_MIN_SEQ - 1, "sequential"), ("bf16", 64, 1, "sequential"),
+    ("bf16", 32, 300, "sequential"), ("bf16", 8, 300, "sequential"),
+    ("f32", 64, 300, "sequential"), ("f32", 64, 1, "sequential"),
+    ("f32", 16, 300, "sequential")])
+def test_wkv_kernel_variant_counts(card, dtype, hd, s, variant):
+    """bf16 r/k/v at hd 64 and S >= CHUNKED_MIN_SEQ launch the chunked
+    kernel, every other call the sequential one; each call raises its own
+    count and the sum by one."""
+    args = _wkv_inputs(1, s, 2, hd, dtype, "model", s + hd, card)
+    assert wkvk.kernel_variant(args[0].dtype, args[3].dtype, hd, s) == variant
+    total, counts = _counts()
+    wkv_bhsd(*args)
+    torch.cuda.synchronize()
+    assert wkv_bhsd.launches == total + 1
+    want = {name: n + (name == variant) for name, n in counts.items()}
+    assert wkv_bhsd.variant_launches == want
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_wkv_kernel_state_passing_equals_one_call(card, dtype):
     """Two calls with the state carried across equal one call, and S=1
-    steps (decode) equal it too."""
+    steps (decode) equal it too.  Bit for bit where both sides run the
+    same steps in the same order: the sequential kernel always (in bf16
+    the S=1 steps and both halves of a split, launched directly, against
+    one sequential launch over all 64 steps), the chunked one when the
+    split falls on its 16-step chunks; within the limits where the
+    chunked kernel meets the sequential one (bf16 S=1 steps) or a split
+    off its chunks."""
     r, k, v, w, u, s0 = _wkv_inputs(2, 64, 4, 64, dtype, "model", 7, card)
     out, sT = wkv_bhsd(r, k, v, w, u, s0)
-    o1, s_mid = wkv_bhsd(r[:, :, :40].contiguous(), k[:, :, :40].contiguous(),
-                         v[:, :, :40].contiguous(), w[:, :, :40].contiguous(), u, s0)
-    o2, s_end = wkv_bhsd(r[:, :, 40:].contiguous(), k[:, :, 40:].contiguous(),
-                         v[:, :, 40:].contiguous(), w[:, :, 40:].contiguous(), u, s_mid)
-    assert torch.equal(torch.cat([o1, o2], dim=2), out) and torch.equal(s_end, sT)
+    tol = _WKV_TOL[dtype]
+    seq, seq_sT = wkvk.launch("sequential", r, k, v, w, u.float(), s0)
+
+    def two_calls(split, call):
+        o1, s_mid = call(r[:, :, :split], k[:, :, :split], v[:, :, :split],
+                         w[:, :, :split], u, s0)
+        o2, s_end = call(r[:, :, split:], k[:, :, split:], v[:, :, split:],
+                         w[:, :, split:], u, s_mid)
+        return torch.cat([o1, o2], dim=2), s_end
+
+    two, s_end = two_calls(40, wkv_bhsd)
+    if dtype == "f32":
+        assert torch.equal(two, out) and torch.equal(s_end, sT)
+    else:
+        _close(two, out, tol)
+        _close(s_end, sT, _STATE_TOL)
+        two, s_end = two_calls(32, wkv_bhsd)
+        assert torch.equal(two, out) and torch.equal(s_end, sT)
+        two, s_end = two_calls(
+            40, lambda *a: wkvk.launch("sequential", *a[:4], u.float(), a[5]))
+        assert torch.equal(two, seq) and torch.equal(s_end, seq_sT)
     state, steps = s0, []
     for t in range(r.shape[2]):
-        o, state = wkv_bhsd(*(x[:, :, t:t + 1].contiguous() for x in (r, k, v, w)),
-                            u, state)
+        o, state = wkv_bhsd(*(x[:, :, t:t + 1] for x in (r, k, v, w)), u, state)
         steps.append(o)
-    assert torch.equal(torch.cat(steps, dim=2), out) and torch.equal(state, sT)
+    steps = torch.cat(steps, dim=2)
+    assert torch.equal(steps, seq) and torch.equal(state, seq_sT)
+    if dtype == "f32":
+        assert torch.equal(steps, out) and torch.equal(state, sT)
+    else:
+        _close(steps, out, tol)
+        _close(state, sT, _STATE_TOL)
+
+
+@pytest.mark.cuda
+def test_wkv_chunked_state_passing_off_the_chunk_grid(card):
+    """S = 1000 split at 333 (not a multiple of 16): the second call's
+    chunks start mid-way through the first call's; both calls run the
+    chunked kernel, and the pair agrees with one call and with the plain
+    version within the limits."""
+    args = _wkv_inputs(2, 1000, 8, 64, "bf16", "model", 11, card)
+    r, k, v, w, u, s0 = args
+    total, counts = _counts()
+    out, sT = wkv_bhsd(*args)
+    o1, s_mid = wkv_bhsd(r[:, :, :333], k[:, :, :333], v[:, :, :333], w[:, :, :333], u, s0)
+    o2, s_end = wkv_bhsd(r[:, :, 333:], k[:, :, 333:], v[:, :, 333:], w[:, :, 333:], u, s_mid)
+    torch.cuda.synchronize()
+    assert wkv_bhsd.variant_launches["chunked"] == counts["chunked"] + 3
+    two = torch.cat([o1, o2], dim=2)
+    _close(two, out, _WKV_TOL["bf16"])
+    _close(s_end, sT, _STATE_TOL)
+    ref, sT_ref = wkv_bhsd_plain(*args)
+    _close(two, ref, _WKV_TOL["bf16"])
+    _close(s_end, sT_ref, _STATE_TOL)
 
 
 @pytest.mark.cuda
@@ -200,6 +314,34 @@ def test_rwkv_wkv_model_layout_on_the_card(card):
     assert wkv_bhsd.launches == before + 1
     ref, sT_ref = wkv_bhsd_plain(r, k, v, w, u, torch.zeros_like(sT))
     _close(out, tr(ref), _WKV_TOL["bf16"])
+    _close(sT, sT_ref, _STATE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s", [("bf16", 1000), ("f32", 80), ("bf16", 1)])
+def test_rwkv_wkv_reads_model_layout_in_place(card, dtype, s):
+    """ops.rwkv_wkv on contiguous [B,S,H,hd] tensors, as the model holds
+    them: one launch, out a contiguous [B,S,H,hd] tensor, and no copy of
+    r/k/v/w — the call allocates out, sT and u's f32 copy and nothing of
+    r's size."""
+    b, h, hd = 2, 32, 64
+    r, k, v, w, u, s0 = (x.transpose(1, 2).contiguous() if x.dim() == 4 and i < 4 else x
+                         for i, x in enumerate(_wkv_inputs(b, s, h, hd, dtype, "model", 5,
+                                                           card)))
+    assert r.shape == (b, s, h, hd) and r.is_contiguous()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    total, counts = _counts()
+    out, sT = rwkv_wkv(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert wkv_bhsd.launches == total + 1
+    assert out.shape == r.shape and out.is_contiguous()
+    allowed = out.nbytes + sT.nbytes + 4 * u.numel() + 3 * 512   # allocator rounding
+    assert grown <= allowed, (grown, allowed, r.nbytes)
+    ref, sT_ref = wkv_bhsd_plain(*(x.transpose(1, 2) for x in (r, k, v, w)), u, s0)
+    _close(out, ref.transpose(1, 2), _WKV_TOL[dtype])
     _close(sT, sT_ref, _STATE_TOL)
 
 
@@ -218,8 +360,24 @@ def test_wkv_kernel_rejects_what_it_does_not_take(card):
         wkv_bhsd(r, k, v, w, u, s0.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         wkv_bhsd(torch.cat([r, r], dim=3)[..., ::2], k, v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_bhsd(r, k, v, w, u, s0.transpose(2, 3))
+    with pytest.raises(ValueError, match="one layout"):
+        wkv_bhsd(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u, s0)
     with pytest.raises(ValueError, match="S >= 1"):
         wkv_bhsd(*(x[:, :, :0] for x in (r, k, v, w)), u, s0)
     with pytest.raises(ValueError, match="CUDA device or all"):
         wkv_bhsd(r, k, v, w.cpu(), u, s0)
+    # what the chunked kernel does not take: cp.async reads 16-byte pieces,
+    # so a base or a stride off 16 bytes is refused, not handed to the
+    # sequential kernel
+    rb, kb, vb, wb, ub, s0b = _wkv_inputs(1, 64, 2, 64, "bf16", "model", 1, card)
+    flat = torch.zeros(rb.numel() + 1, device=card, dtype=torch.bfloat16)
+    rm = flat[1:].view(rb.shape)
+    assert rm.is_contiguous() and rm.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        wkv_bhsd(rm, kb, vb, wb, ub, s0b)
+    wide = lambda x: torch.zeros(1, 2, 64, 68, device=card, dtype=x.dtype)[..., :64]  # noqa: E731
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        wkv_bhsd(wide(rb), wide(kb), wide(vb), wide(wb), ub, s0b)
     assert wkv_bhsd.launches == before     # nothing launched, nothing fell back
