@@ -54,7 +54,32 @@ a non-zero exit if it fails:
                over one prefill call and one decode step;
                ``serve.main(["--arch", "rwkv6_1b6", "--production", ...])``
                — RWKV's main path, whose WKV launches are counted by kernel
-8. kernels     the card's nvidia-smi line again, one JSON line listing every
+8. backward    the flash backward kernel (through ``flash_attention_bhsd``'s
+               autograd Function) vs autograd of the plain version: dQ, dK
+               and dV, f32 and bf16, causal both ways, at the test shapes,
+               a ragged S=1000, the training shape and every shape the
+               training phases give it; each row names the forward kernel
+               that served it; at S >= 256 a planted fault (one dO tile
+               zeroed in the plain run) that the limit must reject; times
+               at the training shape: the backward kernel, its bound,
+               autograd of the plain version and SDPA's backward (the
+               yardstick only)
+9. gradients   full width, 4 layers, f32 (TF32 off): ``LM.loss`` and every
+               gradient leaf through the kernels vs the same with
+               ``gqa_attention`` routed to the chunked torch scan
+10. train      ``llama3_8b`` at full width, 8 layers, bf16 params, f32
+               AdamW state, B=1 x S=4096: ``Trainer.step_fn`` on one
+               repeated ``SyntheticTokens`` batch; train tokens/s, the
+               forward/backward/AdamW split (CUDA events), peak memory and
+               kernel launches per step, a profiler window over one step,
+               one ``remat="full"`` step, then the falling loss from fresh
+               weights — the training main path, whose backward launches
+               are counted
+11. trainer    the smoke ``llama3_8b`` ``Trainer.run`` with async
+               checkpoints, then a ``FailureInjector`` fault under
+               ``run_with_restarts``: it resumes from the last checkpoint,
+               and its losses equal the unfaulted run's bit for bit
+12. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel, and the final ``{"ok": true, "device": ...}``.
 
 Prefill calls and profile windows are timed after a full garbage
@@ -66,8 +91,10 @@ from __future__ import annotations
 import gc
 import importlib
 import json
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -78,12 +105,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config, get_smoke_config  # noqa: E402
+from repro_torch.convert import tree_leaves  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import attention as attention_mod  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.rwkv import wkv_chunked  # noqa: E402
-from repro_torch.runtime import Request, ServeLoop  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.runtime import (FailureInjector, Request, ServeLoop, Trainer,  # noqa: E402
+                                 TrainerConfig, run_with_restarts)
 
 # the modules; the package's ``flash_attention`` and ``rwkv_wkv`` are the
 # layout wrappers
@@ -109,6 +141,27 @@ KERNEL_SHAPES = [
     (*PREFILL, 32, 8, 128),     # what phase 3's prefill gives the kernel
     (*MAIN_PATH, 32, 8, 128),   # what serve.main's prefill gives it
 ]
+# training: llama3_8b at full width with its depth cut to 8 of 32 layers
+# (2.80 B parameters: params, grads, m, v and master take 44.8 GB), one
+# sequence of 4096 tokens a step
+TRAIN_LAYERS = 8
+TRAIN_SHAPE = (1, 4096)             # batch x length of phase 10
+TRAIN_STEPS = 6                     # timed steps on one repeated batch
+# Peak lr of the falling-loss check.  The trainer's default (3e-4 after
+# warmup-cosine's 10 steps) is the smoke configs' schedule: at full width
+# Adam's first, sign-like steps of 3e-5 and 6e-5 move every output of a
+# 4096-wide matrix by about lr * 4096, and the loss rose (12.27 to 13.16
+# to 13.45; PERF.md §6).  At 1e-5 (steps of 1e-6, 2e-6, ...) the first
+# order term leads.
+TRAIN_LR = 1e-5
+FALLING_STEPS = 5
+GRAD_CHECK = (1, 256)               # batch x length of phase 9 (4 layers, f32)
+GRAD_TOL = 1e-3                     # of each leaf's largest |gradient|
+TRAINER_SHAPE = (16, 4)             # seq x batch of phase 11 (the CPU tests' TINY)
+# the backward kernel's shapes: the forward's test shapes and ragged S,
+# the training shape, and what phases 9 and 11 give it
+BWD_SHAPES = KERNEL_SHAPES[:-2] + [
+    (GRAD_CHECK[0], GRAD_CHECK[1], 32, 8, 128), (TRAINER_SHAPE[1], TRAINER_SHAPE[0], 4, 2, 16)]
 # (atol, rtol) of kernel vs plain.  f32: tests/test_kernels.py's 2e-5 for
 # summation order.  bf16: both sides compute in f32 from the same bf16
 # inputs and round once to bf16, so they differ by at most one bf16 ulp,
@@ -306,7 +359,7 @@ def cuda_core_bf16_ms(q, k, v, reps: int) -> float:
     stream = torch.cuda.current_stream().cuda_stream
     bh, s, hd = q.shape
     launch = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),  # noqa: E731
-                        bh, k.shape[0], s, hd, 1, 1, hd ** -0.5, stream)
+                        None, bh, k.shape[0], s, hd, 1, 1, hd ** -0.5, stream)
     check(launch() == 0, "the CUDA-core kernel refused a bf16 launch")
     return time_ms(launch, reps)
 
@@ -632,7 +685,7 @@ def phase_prefill(model) -> dict:
         launches.append(dict(fa.flash_attention_bhsd.variant_launches))
         check(tuple(logits.shape) == (b, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
-        check(launches[-1] == {"wgmma": cfg.n_layers, "cuda_core": 0},
+        check(launches[-1] == {"wgmma": cfg.n_layers, "cuda_core": 0, "backward": 0},
               f"kernel launches in one prefill {launches[-1]}, want {cfg.n_layers} "
               f"of the tensor-core kernel")
     peak = torch.cuda.max_memory_allocated()
@@ -661,7 +714,7 @@ def phase_consistency(cfg_full) -> int:
     fa.reset_launch_counts()
     last = serve.prefill(model, tokens)
     launches = dict(fa.flash_attention_bhsd.variant_launches)
-    check(launches == {"wgmma": 0, "cuda_core": cfg.n_layers},
+    check(launches == {"wgmma": 0, "cuda_core": cfg.n_layers, "backward": 0},
           f"f32 prefill kernel launches {launches}, want {cfg.n_layers} of the CUDA-core kernel")
     with torch.no_grad():
         full = model(tokens)
@@ -863,7 +916,7 @@ def phase_main_path() -> int:
          kernel_launches=launches, wkv_launches=wkv.wkv_bhsd.launches)
     check(rc == 0, f"serve.main exited {rc}")
     want = get_config("llama3_8b").n_layers    # one launch per layer, one prefill
-    check(launches == {"wgmma": want, "cuda_core": 0},
+    check(launches == {"wgmma": want, "cuda_core": 0, "backward": 0},
           f"kernel launches on the main path {launches}, want {want} of the tensor-core kernel")
     check(wkv.wkv_bhsd.launches == 0, "the llama path launched the WKV kernel")
     return launches["wgmma"]
@@ -970,6 +1023,337 @@ def phase_rwkv_main_path() -> dict:
     return launches
 
 
+def bwd_flops(bh, s, hd, causal) -> int:
+    """The backward's operations: five products (scores, dP, dV, dK, dQ)
+    over the unmasked score pairs, 2.5x the forward's two."""
+    return attention_flops(bh, s, hd, causal) * 5 // 2
+
+
+def bwd_bound_ms(bh, bh_kv, s, hd, causal, dtype, elem_bytes) -> tuple[float, str]:
+    """Least time for the backward's work: its operations over the peak
+    rate of the input type, or q/k/v/dO and the f32 lse read once and
+    dq/dk/dv written once over HBM."""
+    t_ops = bwd_flops(bh, s, hd, causal) / PEAK_FLOPS[dtype]
+    t_bytes = ((3 * bh + 4 * bh_kv) * s * hd * elem_bytes + 4 * bh * s) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_grads(fn, q, k, v, do, causal):
+    """(out, (dq, dk, dv)) of ``fn`` by autograd on fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, causal=causal)
+    return out, torch.autograd.grad(out, leaves, do)
+
+
+def planted_bwd_fault(q, k, v, do, causal):
+    """Autograd of the plain version with one late 64-row dO tile zeroed:
+    what a kernel that drops one q tile from its sums would return."""
+    s = q.shape[1]
+    t0 = (s - 1) // 64 * 64 - 64
+    do = do.clone()
+    do[:, t0:t0 + 64] = 0
+    return attention_grads(fa.flash_attention_bhsd_plain, q, k, v, do, causal)[1]
+
+
+def phase_backward() -> tuple[dict, list]:
+    """The backward kernel vs autograd of the plain version at every shape
+    and dtype; times at the training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    timed, rows = {}, []
+    for b, s, h, hkv, hd in BWD_SHAPES:
+        for name, dt in dtypes.items():
+            q, k, v, do = (torch.randn((b * n, s, hd), generator=gen, device="cuda").to(dt)
+                           for n in (h, hkv, hkv, h))
+            for causal in (True, False):
+                before = dict(fa.flash_attention_bhsd.variant_launches)
+                _, grads = attention_grads(fa.flash_attention_bhsd, q, k, v, do, causal)
+                served = sorted(n for n, c in fa.flash_attention_bhsd.variant_launches.items()
+                                if c != before[n])
+                _, ref = attention_grads(fa.flash_attention_bhsd_plain, q, k, v, do, causal)
+                torch.cuda.synchronize()
+                atol, rtol = TOL[name]
+                ratios = {g: limit_ratio(out.float(), r.float(), atol, rtol)
+                          for g, out, r in zip(("dq", "dk", "dv"), grads, ref)}
+                row = dict(shape=[b, s, h, hkv, hd], dtype=name, causal=causal,
+                           forward_kernel=fa.kernel_variant(dt, hd), launched=served,
+                           max_abs_err=max(float((g.float() - r.float()).abs().max())
+                                           for g, r in zip(grads, ref)),
+                           limit_ratio_by_grad=ratios, limit_ratio=max(ratios.values()),
+                           atol=atol, rtol=rtol)
+                row["ok"] = row["limit_ratio"] <= 1
+                check(served == sorted(["backward", row["forward_kernel"]]),
+                      f"launch counts show {served} serving {row}")
+                if s >= 256:
+                    bad = planted_bwd_fault(q, k, v, do, causal)
+                    row["fault_limit_ratio"] = max(limit_ratio(x.float(), r.float(), atol, rtol)
+                                                   for x, r in zip(bad, ref))
+                    row["fault_rejected"] = row["fault_limit_ratio"] > 1
+                    del bad
+                if (b, s, h, hkv, hd) == MAIN_SHAPE and causal:
+                    row.update(backward_times(q, k, v, do, name))
+                    timed[name] = row
+                emit("backward", **row)
+                rows.append(row)
+                check(row["ok"], f"the backward kernel disagrees with autograd of the plain "
+                                 f"version: {row}")
+                check(row.get("fault_rejected", True),
+                      f"the limit lets a zeroed dO tile through: {row}")
+                del grads, ref
+            del q, k, v, do
+    return timed, rows
+
+
+def backward_times(q, k, v, do, name) -> dict:
+    """The backward kernel alone, backward only of autograd of the plain
+    version and of SDPA (the yardstick: the port never calls it), on the
+    same inputs; the bound from this shape's work."""
+    bh, s, hd = q.shape
+    reps = 5
+    _, lse = fa._forward(q, k, v, True, with_lse=True)
+    row = dict(kernel_ms=time_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, lse, do, causal=True), reps))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_bhsd_plain(*leaves, causal=True)
+    row["plain_ms"] = time_ms(
+        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 2)
+    del out
+    b = 1
+    q4, k4, v4 = (t.view(b, -1, s, hd) for t in leaves)
+    out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                           enable_gqa=True)
+    do4 = do.view(b, -1, s, hd)
+    row["library_ms"] = time_ms(
+        lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True), reps)
+    del out
+    row["bound_ms"], row["bound_by"] = bwd_bound_ms(bh, k.shape[0], s, hd, True, name,
+                                                    q.element_size())
+    row["f32_cuda_core_bound_ms"] = bwd_flops(bh, s, hd, True) / PEAK_FLOPS["f32"] * 1e3
+    row["kernel_tflops"] = bwd_flops(bh, s, hd, True) / row["kernel_ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+    return row
+
+
+def scan_route(q, k, v, *, causal=True, chunk=512, sliding_window=0):
+    """``gqa_attention`` by the chunked torch scan, on any device: the CPU
+    route of the model, differentiated by autograd."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    og = attention_mod._chunked_gqa(q.reshape(b, s, hkv, hq // hkv, hd), k, v, causal=causal,
+                                    chunk=min(chunk, s), sliding_window=sliding_window)
+    return og.reshape(b, s, hq, hd)
+
+
+def model_grads(model, batch) -> tuple[float, dict]:
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss(batch)
+    loss.backward()
+    grads = {name: p.grad.detach().clone() for name, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def phase_gradients(cfg_full) -> int:
+    """``LM.loss`` and every gradient leaf through the kernels (CUDA-core
+    forward, backward kernel) vs the same with attention routed to the
+    chunked torch scan: full width, 4 layers, f32, TF32 off.  Returns the
+    backward kernel's launches in the kernel route."""
+    cfg = replace(cfg_full, n_layers=4)
+    model = LM(cfg, param_dtype=torch.float32, seed=SEED, device="cuda")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    b, s = GRAD_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    fa.reset_launch_counts()
+    loss_k, grads_k = model_grads(model, batch)
+    launches = dict(fa.flash_attention_bhsd.variant_launches)
+    original = transformer_mod.attn.gqa_attention
+    transformer_mod.attn.gqa_attention = scan_route
+    try:
+        fa.reset_launch_counts()
+        loss_s, grads_s = model_grads(model, batch)
+        scan_launches = fa.flash_attention_bhsd.launches
+    finally:
+        transformer_mod.attn.gqa_attention = original
+    errs = {name: float((g - grads_s[name]).abs().max() / grads_s[name].abs().max().clamp(
+        min=1e-30)) for name, g in grads_k.items()}
+    worst = max(errs, key=errs.get)
+    row = dict(layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s, dtype="f32",
+               loss_kernels=loss_k, loss_scan=loss_s, loss_abs_err=abs(loss_k - loss_s),
+               leaves=len(errs), worst_leaf=worst, worst_rel_err=errs[worst],
+               median_rel_err=statistics.median(errs.values()), limit=GRAD_TOL,
+               kernel_launches=launches, scan_route_flash_launches=scan_launches)
+    emit("gradients", **row)
+    check(launches == {"wgmma": 0, "cuda_core": cfg.n_layers, "backward": cfg.n_layers},
+          f"kernel-route launches {launches}")
+    check(scan_launches == 0, "the scan route launched a flash kernel")
+    check(all(e <= GRAD_TOL for e in errs.values()) and abs(loss_k - loss_s) < 1e-4,
+          f"gradients through the kernels differ from the scan route: {row}")
+    del model, grads_k, grads_s
+    return launches["backward"]
+
+
+def phase_train(cfg_full) -> dict:
+    """Full-width llama3_8b, 8 layers, bf16 params: ``Trainer.step_fn`` on
+    one repeated batch, timed at the trainer's default AdamW; one
+    ``remat="full"`` step; then fresh weights at peak lr ``TRAIN_LR``,
+    where the loss must fall.  The training main path: the launch counts
+    are reset just before the timed steps and read just after."""
+    cfg = replace(cfg_full, n_layers=TRAIN_LAYERS)
+    seq, batch_size = TRAIN_SHAPE[1], TRAIN_SHAPE[0]
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = Trainer(cfg, ShapeConfig("train_4k_b1", seq, batch_size, "train"),
+                          TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=ckpt_dir),
+                          param_dtype=torch.bfloat16, device="cuda")
+        params = trainer.params()
+        opt_state = adamw_init(params)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        batch = trainer.batch(trainer.data.batch_at(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, secs, splits = [], [], []
+        for _ in range(TRAIN_STEPS):
+            events = {}
+
+            def mark(name, events=events):
+                events[name] = torch.cuda.Event(enable_timing=True)
+                events[name].record()
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = trainer.step_fn(params, opt_state, batch, mark=mark)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            splits.append({name: events[name].elapsed_time(events[nxt]) for name, nxt in
+                           (("forward", "backward"), ("backward", "adamw"), ("adamw", "end"))})
+        launches = dict(fa.flash_attention_bhsd.variant_launches)
+        peak = torch.cuda.max_memory_allocated()
+        profile = profile_window(lambda: trainer.step_fn(params, opt_state, batch), 1, top=10)
+        # one step with every layer recomputed in the backward pass
+        trainer.model.remat = "full"
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _, remat_secs, _ = timed_call(lambda: trainer.step_fn(params, opt_state, batch))
+        remat_launches = dict(fa.flash_attention_bhsd.variant_launches)
+        remat_peak = torch.cuda.max_memory_allocated()
+        # the falling-loss check: fresh weights and state, peak lr TRAIN_LR
+        del params, opt_state, metrics
+        gc.collect()
+        trainer.model.remat = "none"
+        trainer.model.init_params(trainer.tcfg.seed)
+        trainer.tcfg.opt = AdamWConfig(lr=TRAIN_LR)
+        params = trainer.params()
+        opt_state = adamw_init(params)
+        falling = [float(trainer.step_fn(params, opt_state, batch)[2]["loss"])
+                   for _ in range(FALLING_STEPS)]
+        del trainer, params, opt_state, batch
+    timed = secs[2:]                     # after cuBLAS and the allocator warmed up
+    step_s = statistics.median(timed)
+    split = {name: statistics.median(sp[name] for sp in splits[2:]) for name in splits[0]}
+    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+               batch=batch_size, seq=seq, dtype="bf16 params, f32 AdamW state",
+               losses=losses, falling_lr=TRAIN_LR, losses_falling=falling,
+               step_seconds=secs, median_step_s=step_s,
+               train_tokens_per_s=batch_size * seq / step_s, split_ms=split,
+               split_ms_by_step=splits, peak_memory_gb=peak / 1e9,
+               launches=launches, launches_per_step={n: c / TRAIN_STEPS
+                                                     for n, c in launches.items()},
+               remat_full=dict(step_s=remat_secs, launches=remat_launches,
+                               peak_memory_gb=remat_peak / 1e9),
+               profile=profile)
+    emit("train", **row)
+    want = {"wgmma": cfg.n_layers * TRAIN_STEPS, "cuda_core": 0,
+            "backward": cfg.n_layers * TRAIN_STEPS}
+    check(launches == want, f"training launches {launches}, want {want}")
+    check(remat_launches == {"wgmma": 2 * cfg.n_layers, "cuda_core": 0,
+                             "backward": cfg.n_layers},
+          f"remat='full' step launches {remat_launches}")
+    check(all(np.isfinite(losses + falling)), f"training losses are not finite: {row}")
+    # warmup-cosine's first scale is 0: steps 0 and 1 see the same weights
+    check(falling[0] == falling[1] and falling[-1] < falling[2] < falling[1],
+          f"the loss does not fall on a repeated batch at lr {TRAIN_LR}: {falling}")
+    return row
+
+
+def phase_trainer() -> dict:
+    """The smoke llama3_8b Trainer on the card with async checkpoints, and
+    a fault under run_with_restarts that must resume from the last
+    checkpoint and give the unfaulted run's losses bit for bit."""
+    cfg = get_smoke_config("llama3_8b")
+    seq, batch = TRAINER_SHAPE
+    shape = ShapeConfig("tiny_train", seq, batch, "train")
+    steps, fault_at = 8, 5
+
+    def trainer(ckpt_dir, injector=None):
+        return Trainer(cfg, shape, TrainerConfig(steps=steps, ckpt_every=2, ckpt_dir=ckpt_dir,
+                                                 async_ckpt=True),
+                       attn_chunk=8, injector=injector, device="cuda")
+    with tempfile.TemporaryDirectory() as root:
+        reset_launches()
+        ref = trainer(f"{root}/ref").run()
+        launches = dict(fa.flash_attention_bhsd.variant_launches)
+        injector = FailureInjector(fail_at_steps=(fault_at,))
+        hist, restarts = run_with_restarts(
+            lambda: trainer(f"{root}/fault", injector), lambda t: t.run())
+        kept = sorted(p.name for p in Path(f"{root}/fault").iterdir())
+    resumed = hist["restarted_at"]
+    row = dict(arch=cfg.name, steps=steps, fault_at=fault_at, restarts=restarts,
+               restarted_at=resumed, losses=ref["loss"], losses_after_restart=hist["loss"],
+               bit_equal=hist["loss"] == ref["loss"][resumed:], checkpoints_kept=kept,
+               launches_unfaulted_run=launches)
+    emit("trainer", **row)
+    check(restarts == 1 and resumed == 4 and hist["step"] == list(range(4, steps)),
+          f"the faulted run did not resume from the step-3 checkpoint: {row}")
+    check(row["bit_equal"], f"losses after the restart differ from the unfaulted run: {row}")
+    check(all(np.isfinite(ref["loss"])), "trainer losses are not finite")
+    check(launches == {"wgmma": 0, "cuda_core": steps * cfg.n_layers,
+                       "backward": steps * cfg.n_layers},
+          f"trainer launches {launches}")
+    return row
+
+
+def backward_row(main_row: dict, checks: list, launches: int, path: str) -> dict:
+    """The kernels-line entry of the backward kernel: errors over every
+    phase-8 row, times at the training shape in bf16."""
+    return {
+        "name": "flash_attention_bwd[backward]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82",
+        "replaces_note": ("the gradient of that kernel's function; the TPU kernel is forward "
+                          "only and JAX differentiates its jnp model path"),
+        "launches": launches,
+        "launches_counted_on": path,
+        "serves": "every CUDA call of flash_attention_bhsd under grad: f32 and bf16, hd 16-128",
+        "max_abs_err": max(r["max_abs_err"] for r in checks),
+        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in checks if r["dtype"] == d)
+                                 for d in TOL},
+        "tol": {d: {"atol": a, "rtol": r} for d, (a, r) in TOL.items()},
+        "limit_ratio": max(r["limit_ratio"] for r in checks),
+        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in checks
+                                     if "fault_limit_ratio" in r),
+        "checked_shapes": sorted({tuple(r["shape"]) for r in checks}),
+        "ms": main_row["kernel_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "f32_cuda_core_bound_ms": main_row["f32_cuda_core_bound_ms"],
+        "achieved_tflops": main_row["kernel_tflops"],
+        "bound_share": main_row["bound_share"],
+        "kernel_over_library": main_row["kernel_over_library"],
+        "shape": main_row["shape"],
+        "dtype": main_row["dtype"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; it needs an NVIDIA card",
@@ -982,6 +1366,7 @@ def main() -> int:
     phase_build()
     timed, checks = phase_kernel()
     wkv_timed, wkv_checks = phase_wkv()
+    bwd_timed, bwd_checks = phase_backward()
 
     cfg = get_config("llama3_8b")
     model = LM(cfg, seed=SEED, device="cuda")        # bf16, full depth
@@ -1003,6 +1388,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     wkv_launches = phase_rwkv_main_path()
 
+    phase_gradients(cfg)
+    torch.cuda.empty_cache()
+    train = phase_train(cfg)
+    torch.cuda.empty_cache()
+    phase_trainer()
+
     kernels = [flash_row(timed["bf16"], checks, "wgmma", launches,
                          "every llama3_8b prefill (serve.main --production)"),
                flash_row(timed["f32"], checks, "cuda_core", cuda_core_launches,
@@ -1015,6 +1406,9 @@ def main() -> int:
                         "every rwkv6_1b6 decode step (serve.main --production)",
                         at_prefill_ms=wkv_timed["bf16"]["sequential_kernel_ms"],
                         decode_batch4=wkv_timed[("decode", WKV_DECODE[0])])]
+    kernels.append(backward_row(bwd_timed["bf16"], bwd_checks, train["launches"]["backward"],
+                                f"every full-width llama3_8b train step ({TRAIN_LAYERS} "
+                                f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)"))
     emit("done", seconds=time.perf_counter() - t_start, gc_collections=len(GC_PAUSES),
          gc_full_collections=sum(g == 2 for g, _ in GC_PAUSES),
          gc_seconds=sum(p for _, p in GC_PAUSES),

@@ -5,6 +5,8 @@ The port's own copy of ``ModelConfig``, ``get_config`` and
 port imports nothing of that package.  Only the architectures that the
 port runs are listed (the dense decoders and RWKV6); the others arrive
 with their slices.
+``ShapeConfig`` (a batch shape: sequence length, global batch, kind) is
+copied too, for the trainer.
 Each module defines ``CONFIG`` (published dims) and ``smoke_config()``
 (a reduced same-family variant for CPU tests).
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 import importlib
 from dataclasses import dataclass, replace
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "ARCH_IDS", "get_config", "get_smoke_config"]
 
 
 @dataclass(frozen=True)
@@ -161,6 +163,17 @@ class ModelConfig:
                 p -= (self.n_experts - self.experts_per_token) * self.mlp_params()
         return p
 
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
 
 
 ARCH_IDS = (

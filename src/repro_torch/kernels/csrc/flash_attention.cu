@@ -1,4 +1,4 @@
-// Flash attention forward for NVIDIA Hopper (sm_90a), CUDA C++.
+// Flash attention, forward and backward, for NVIDIA Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_bhsd, body _kernel): softmax(q k^T * hd^-0.5) v over
@@ -15,6 +15,13 @@
 // * flash_fwd_kernel (repro_flash_attention_fwd): f32 and bf16 at hd 16,
 //   32, 64 and 128, f32 arithmetic on the CUDA cores.  It serves f32 calls
 //   and bf16 at hd 16 and 32.
+//
+// Both forward kernels take an optional f32 lse [BHq, S] output: the
+// natural-log sum of exp(scores * hd^-0.5) of each row, the one number per
+// row that the backward needs to recompute p.  Serving passes null.  The
+// backward (repro_flash_attention_bwd, at the end of this file) has no TPU
+// counterpart: the TPU kernel is forward only and JAX differentiates its
+// jnp model path; it is described where it begins.
 //
 // Bound at the main-path shape (one llama3_8b prefill layer: B=1, S=4096,
 // Hq=32, Hkv=8, hd=128, causal, bf16): the unmasked half of the score
@@ -57,6 +64,8 @@
 //   accumulator maps one to one onto the A-operand registers of the next
 //   wgmma, so hi and lo go to P.V from registers.
 // * Epilogue: O / max(l, 1e-30), rounded once to bf16, rows past S skipped.
+//   With an lse pointer, the first thread of each quad also stores its two
+//   rows' (m + log2 l) * ln 2: the log-sum-exp back in natural units.
 // * Heaviest q tiles are launched first.
 //
 // The CUDA-core kernel.
@@ -107,7 +116,7 @@ struct Layout {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  int seq, int group, float scale, int causal) {
   using L = Layout<HD>;
   constexpr int kCols = HD / 16;         // output columns per thread
@@ -250,12 +259,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) store(op + static_cast<size_t>(row) * HD + tx + 16 * j, acc[i][j] / l);
+    // m_s is in the units of the scaled scores, so this is the row's log-sum-exp
+    if (lse != nullptr && tx == 0) lse[static_cast<size_t>(bh) * seq + row] = m_s[r] + logf(l);
   }
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int bh_kv,
-                   int seq, float scale, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                   int bh_kv, int seq, float scale, int causal, cudaStream_t stream) {
   const size_t bytes = Layout<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -264,18 +275,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid(bh, (seq + kBQ - 1) / kBQ);
   flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq, bh / bh_kv, scale, causal);
+      static_cast<T*>(o), lse, seq, bh / bh_kv, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, int bh, int bh_kv,
-                        int seq, int hd, float scale, int causal, cudaStream_t stream) {
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                        int bh_kv, int seq, int hd, float scale, int causal, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, bh, bh_kv, seq, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, bh, bh_kv, seq, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bh, bh_kv, seq, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bh, bh_kv, seq, scale, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -452,7 +463,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                       int seq, int group, float scale_log2, int causal) {
+                       float* __restrict__ lse, int seq, int group, float scale_log2, int causal) {
   using L = TcSmem<HD>;
   constexpr int kPanels = HD / kPanelCols;
   extern __shared__ unsigned char smem_raw[];
@@ -602,6 +613,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   l_a = fmaxf(l_a, 1e-30f);
   l_b = fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && col == 0) {        // m and l are the quad's own: one store a row
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lp = lse + static_cast<size_t>(bh) * seq;
+    if (row_a < seq) lp[row_a] = (m_a + log2f(l_a)) * kLn2;
+    if (row_b < seq) lp[row_b] = (m_b + log2f(l_b)) * kLn2;
+  }
   __nv_bfloat16* op = o + static_cast<size_t>(bh) * seq * HD;
 #pragma unroll
   for (int c = 0; c < HD / 8; ++c) {
@@ -653,8 +670,8 @@ bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int hea
 }
 
 template <int HD>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int bh, int bh_kv,
-                         int seq, float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                         int bh_kv, int seq, float scale, int causal, cudaStream_t stream) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -670,7 +687,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   const dim3 grid(bh, (seq + kTcBM - 1) / kTcBM);
   // scores are scaled into log2 units so that exp2 gives exp
   flash_fwd_wgmma_kernel<HD><<<grid, kTcThreads, bytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), seq, bh / bh_kv,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, seq, bh / bh_kv,
       scale * 1.4426950408889634f, causal);
   return cudaGetLastError();
 }
@@ -678,24 +695,27 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
 }  // namespace
 
 // q [bh, seq, hd], k/v [bh_kv, seq, hd], o [bh, seq, hd], all contiguous, on
-// one device, of one type (is_bf16 ? bf16 : f32).  The CUDA-core kernel:
-// any of those types at hd 16, 32, 64 or 128.  Launches on `stream` and
-// does not synchronise; returns the cudaError_t of the launch.
+// one device, of one type (is_bf16 ? bf16 : f32); lse null or f32 [bh, seq].
+// The CUDA-core kernel: any of those types at hd 16, 32, 64 or 128.
+// Launches on `stream` and does not synchronise; returns the cudaError_t of
+// the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int bh, int bh_kv, int seq, int hd, int is_bf16,
-                                         int causal, float scale, void* stream) {
+                                         void* lse, int bh, int bh_kv, int seq, int hd,
+                                         int is_bf16, int causal, float scale, void* stream) {
   if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 || (seq + kBQ - 1) / kBQ > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch_hd<__nv_bfloat16>(q, k, v, o, bh, bh_kv, seq, hd, scale, causal, s);
-  return dispatch_hd<float>(q, k, v, o, bh, bh_kv, seq, hd, scale, causal, s);
+  float* l = static_cast<float*>(lse);
+  if (is_bf16)
+    return dispatch_hd<__nv_bfloat16>(q, k, v, o, l, bh, bh_kv, seq, hd, scale, causal, s);
+  return dispatch_hd<float>(q, k, v, o, l, bh, bh_kv, seq, hd, scale, causal, s);
 }
 
 // The same arguments; the tensor-core kernel, which takes bf16 (is_bf16 = 1)
 // at hd 64 or 128 with 16-byte-aligned q, k and v, and nothing else.
 extern "C" int repro_flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
-                                               void* o, int bh, int bh_kv, int seq, int hd,
-                                               int is_bf16, int causal, float scale,
+                                               void* o, void* lse, int bh, int bh_kv, int seq,
+                                               int hd, int is_bf16, int causal, float scale,
                                                void* stream) {
   if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 ||
       (seq + kTcBM - 1) / kTcBM > 65535 || !is_bf16)
@@ -704,9 +724,10 @@ extern "C" int repro_flash_attention_fwd_wgmma(const void* q, const void* k, con
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return cudaErrorMisalignedAddress;   // TMA reads from 16-byte-aligned bases only
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 64: return launch_wgmma<64>(q, k, v, o, bh, bh_kv, seq, scale, causal, s);
-    case 128: return launch_wgmma<128>(q, k, v, o, bh, bh_kv, seq, scale, causal, s);
+    case 64: return launch_wgmma<64>(q, k, v, o, l, bh, bh_kv, seq, scale, causal, s);
+    case 128: return launch_wgmma<128>(q, k, v, o, l, bh, bh_kv, seq, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -717,6 +738,396 @@ extern "C" int repro_flash_attention_wgmma_smem_bytes(int hd) {
   switch (hd) {
     case 64: return static_cast<int>(TcSmem<64>::kAlloc);
     case 128: return static_cast<int>(TcSmem<128>::kAlloc);
+    default: return 0;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The backward kernel (f32 and bf16, hd 16-128, CUDA cores).
+//
+// No TPU kernel to replace: src/repro/kernels/flash_attention.py is
+// forward only, and JAX differentiates its jnp model path.  This computes
+// the gradient of the forward above, the function reference_attention
+// computes, from q, k, v, dO and the forward's lse: with
+// p = exp(scale q.k - lse) (0 where masked), dP = dO.V^T and
+// D = rowsum(p * dP),
+//
+//   dV = P^T dO,   dS = P * (dP - D),   dK = scale dS^T Q,   dQ = scale dS K,
+//
+// GQA's dK and dV summed over the query heads of each kv head.  Everything
+// is f32 on the CUDA cores from inputs upcast on load, and each gradient is
+// rounded once to the input type, so in bf16 it differs from autograd of
+// the plain version by at most one ulp.
+//
+// * D.  FlashAttention takes D = rowsum(dO * O) from the saved output.  In
+//   bf16, O is rounded to 2^-9, and the resulting dS = P (dP - D) error
+//   lands on every key of a row: against the plain version's f32 gradient
+//   it misses the one-ulp limit by 6-160x (tests/test_torch_flash_bwd_
+//   numerics.py).  So D is summed from p * dP itself, in f32, in the pass
+//   that computes dQ, which sees every key of its rows: dQ = scale
+//   (sum p dP K - D sum p K), two accumulators instead of one.  The
+//   backward does not read O at all.
+// * Step 1, flash_bwd_dq_kernel: one block of 256 threads per (q head,
+//   64-row q tile), heaviest tiles first; it keeps q and dO, walks the
+//   64-key K/V tiles (up to the diagonal when causal), and writes dQ and D.
+// * Step 2, flash_bwd_dkdv_kernel: one block per (kv head, 64-key tile),
+//   keeping K and V; it walks every q tile of every query head of its
+//   group (from the diagonal on when causal), so GQA's sum over the group
+//   happens in the block.  No atomics in either step: two identical calls
+//   give bit-identical gradients.
+// * The thread layout is the CUDA-core forward's: a 16 x 16 grid over a
+//   64 x 64 tile, rows ty + 16 i, columns tx + 16 j; tiles in shared memory
+//   with one float of padding a row.  At hd 128 a block takes 162 KB of
+//   shared memory, so one block runs on an SM.
+// * Bound at the training shape (one llama3_8b layer: B=1, S=4096, 32/8
+//   heads, hd 128, causal, bf16): five products over the unmasked half of
+//   the score matrix, 2.5x the forward's 137.5 GFLOP, 0.347 ms at the bf16
+//   tensor-core peak, 5.1 ms at the f32 CUDA-core peak; bound by
+//   operations.  This kernel runs eight products' worth (the recomputed
+//   scores and dP in both steps, and the two dQ accumulators) on the CUDA
+//   cores; the tensor cores are later work.
+namespace {
+
+constexpr int kBT = 64;        // q rows and keys per tile of the backward
+
+template <int HD>
+struct BwdLayout {
+  static constexpr int kLd = HD + 1;                 // padded row of a [64][HD] tile
+  static constexpr int kSLd = kBT + 1;               // padded row of a 64 x 64 tile
+  static constexpr int kTile = kBT * kLd;
+  static constexpr int kFloats = 4 * kTile + 2 * kBT * kSLd + 2 * kBT;
+  static constexpr size_t kBytes = kFloats * sizeof(float);
+};
+
+// rows row0 .. row0 + 63 of a [seq, HD] head into a padded f32 tile, zeros
+// past seq
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+                                          int seq) {
+  for (int i = threadIdx.x; i < kBT * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD, row = row0 + r;
+    dst[r * (HD + 1) + d] = row < seq ? to_f32(src[static_cast<size_t>(row) * HD + d]) : 0.f;
+  }
+}
+
+// s[i][j] = a1[ty+16i] . b1[tx+16j] and t[i][j] = a2[ty+16i] . b2[tx+16j]
+// over HD, for rows of padded [64][HD] tiles
+template <int HD>
+__device__ __forceinline__ void two_products(const float* a1, const float* b1, const float* a2,
+                                             const float* b2, float (&s)[4][4],
+                                             float (&t)[4][4]) {
+  constexpr int kLd = HD + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float x[4], y[4], u[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = a1[(ty + 16 * i) * kLd + d];
+      u[i] = a2[(ty + 16 * i) * kLd + d];
+      y[i] = b1[(tx + 16 * i) * kLd + d];
+      w[i] = b2[(tx + 16 * i) * kLd + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(x[i], y[j], s[i][j]);
+        t[i][j] = fmaf(u[i], w[j], t[i][j]);
+      }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ delta, T* __restrict__ dq, int seq, int group,
+                    float scale, int causal) {
+  using L = BwdLayout<HD>;
+  constexpr int kCols = HD / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;                      // [64][kLd] q
+  float* dos = qs + L::kTile;            // [64][kLd] dO
+  float* ks = dos + L::kTile;            // [64][kLd] K tile
+  float* vs = ks + L::kTile;             // [64][kLd] V tile
+  float* ps = vs + L::kTile;             // [64][kSLd] p
+  float* pds = ps + kBT * L::kSLd;       // [64][kSLd] p * dP
+  float* lse_s = pds + kBT * L::kSLd;    // [64]
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBT;
+  const size_t head = static_cast<size_t>(seq) * HD;
+  const T* kp = k + (bh / group) * head;
+  const T* vp = v + (bh / group) * head;
+
+  load_tile<T, HD>(qs, q + bh * head, q0, seq);
+  load_tile<T, HD>(dos, dout + bh * head, q0, seq);
+  if (tid < kBT) lse_s[tid] = q0 + tid < seq ? lse[static_cast<size_t>(bh) * seq + q0 + tid] : 0.f;
+
+  float acc_a[4][kCols], acc_b[4][kCols];   // sum p dP K and sum p K
+  float dsum[4];                            // this thread's share of D
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    dsum[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+  }
+
+  int n_k = (seq + kBT - 1) / kBT;
+  if (causal) n_k = min(n_k, (q0 + kBT - 1) / kBT + 1);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kBT;
+    load_tile<T, HD>(ks, kp, k0, seq);
+    load_tile<T, HD>(vs, vp, k0, seq);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    two_products<HD>(qs, ks, dos, vs, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i, row = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j, col = k0 + c;
+        const bool keep = row < seq && col < seq && (!causal || col <= row);
+        const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        const float pdp = p * dp[i][j];
+        dsum[i] += pdp;
+        ps[r * L::kSLd + c] = p;
+        pds[r * L::kSLd + c] = pdp;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBT; ++c) {
+      float x[4], y[4], w[kCols];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = pds[(ty + 16 * i) * L::kSLd + c];
+        y[i] = ps[(ty + 16 * i) * L::kSLd + c];
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) w[j] = ks[c * L::kLd + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          acc_a[i][j] = fmaf(x[i], w[j], acc_a[i][j]);
+          acc_b[i][j] = fmaf(y[i], w[j], acc_b[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+  // D of row ty + 16 i: the 16 threads of a row are lanes 0-15 or 16-31 of
+  // one warp
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], off);
+
+  T* dqp = dq + bh * head;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      store(dqp + static_cast<size_t>(row) * HD + tx + 16 * j,
+            scale * (acc_a[i][j] - dsum[i] * acc_b[i][j]));
+    if (tx == 0) delta[static_cast<size_t>(bh) * seq + row] = dsum[i];
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      int seq, int group, float scale, int causal) {
+  using L = BwdLayout<HD>;
+  constexpr int kCols = HD / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;                      // [64][kLd] K tile of this block
+  float* vs = ks + L::kTile;             // [64][kLd] V tile of this block
+  float* qs = vs + L::kTile;             // [64][kLd] q tile
+  float* dos = qs + L::kTile;            // [64][kLd] dO tile
+  float* ps = dos + L::kTile;            // [64 q rows][kSLd] p
+  float* dss = ps + kBT * L::kSLd;       // [64 q rows][kSLd] dS
+  float* lse_s = dss + kBT * L::kSLd;    // [64]
+  float* d_s = lse_s + kBT;              // [64]
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * kBT;       // key tile 0 has the most q tiles under a causal mask
+  const size_t head = static_cast<size_t>(seq) * HD;
+  load_tile<T, HD>(ks, k + bkv * head, k0, seq);
+  load_tile<T, HD>(vs, v + bkv * head, k0, seq);
+
+  float acc_dk[4][kCols], acc_dv[4][kCols];   // keys ty + 16 i, columns tx + 16 j
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
+
+  const int n_q = (seq + kBT - 1) / kBT;
+  const int first = causal ? k0 / kBT : 0;
+  for (int h = 0; h < group; ++h) {
+    const int bh = bkv * group + h;
+    for (int qt = first; qt < n_q; ++qt) {
+      const int q0 = qt * kBT;
+      __syncthreads();                   // the last tile's readers are done
+      load_tile<T, HD>(qs, q + bh * head, q0, seq);
+      load_tile<T, HD>(dos, dout + bh * head, q0, seq);
+      if (tid < kBT) {
+        const size_t at = static_cast<size_t>(bh) * seq + q0 + tid;
+        lse_s[tid] = q0 + tid < seq ? lse[at] : 0.f;
+        d_s[tid] = q0 + tid < seq ? delta[at] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];           // q rows ty + 16 i against keys tx + 16 j
+      two_products<HD>(qs, ks, dos, vs, s, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i, row = q0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j, col = k0 + c;
+          const bool keep = row < seq && col < seq && (!causal || col <= row);
+          const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+          ps[r * L::kSLd + c] = p;
+          dss[r * L::kSLd + c] = p * (dp[i][j] - d_s[r]);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T q over the tile's 64 q rows
+#pragma unroll 4
+      for (int r = 0; r < kBT; ++r) {
+        float x[4], y[4], w[kCols], z[kCols];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[i] = ps[r * L::kSLd + ty + 16 * i];
+          y[i] = dss[r * L::kSLd + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          w[j] = dos[r * L::kLd + tx + 16 * j];
+          z[j] = qs[r * L::kLd + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            acc_dv[i][j] = fmaf(x[i], w[j], acc_dv[i][j]);
+            acc_dk[i][j] = fmaf(y[i], z[j], acc_dk[i][j]);
+          }
+      }
+    }
+  }
+
+  T* dkp = dk + bkv * head;
+  T* dvp = dv + bkv * head;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= seq) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const size_t at = static_cast<size_t>(key) * HD + tx + 16 * j;
+      store(dkp + at, scale * acc_dk[i][j]);
+      store(dvp + at, acc_dv[i][j]);
+    }
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, float* delta, void* dq, void* dk, void* dv, int bh,
+                       int bh_kv, int seq, float scale, int causal, cudaStream_t stream) {
+  const int bytes = static_cast<int>(BwdLayout<HD>::kBytes);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (seq + kBT - 1) / kBT;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  flash_bwd_dq_kernel<T, HD><<<dim3(bh, tiles), kThreads, bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), seq, bh / bh_kv, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // same stream: step 2 reads the D that step 1 wrote
+  flash_bwd_dkdv_kernel<T, HD><<<dim3(bh_kv, tiles), kThreads, bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), seq, bh / bh_kv,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, float* delta, void* dq, void* dk, void* dv, int bh,
+                         int bh_kv, int seq, int hd, float scale, int causal,
+                         cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_bwd<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, stream);
+    case 32: return launch_bwd<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, stream);
+    case 64: return launch_bwd<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, stream);
+    case 128: return launch_bwd<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The gradient of repro_flash_attention_fwd's function.  q, dout, dq
+// [bh, seq, hd]; k, v, dk, dv [bh_kv, seq, hd]; all contiguous, on one
+// device, of one type (is_bf16 ? bf16 : f32); lse f32 [bh, seq] from a
+// forward call on the same q, k, v and causal flag; delta f32 [bh, seq]
+// scratch, written with D.  hd 16, 32, 64 or 128, any seq >= 1.  Launches
+// two kernels on `stream` and does not synchronise; returns the cudaError_t
+// of the launches.
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* lse, void* delta,
+                                         void* dq, void* dk, void* dv, int bh, int bh_kv,
+                                         int seq, int hd, int is_bf16, int causal, float scale,
+                                         void* stream) {
+  if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 || (seq + kBT - 1) / kBT > 65535 ||
+      lse == nullptr || delta == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(delta);
+  if (is_bf16)
+    return dispatch_bwd<__nv_bfloat16>(q, k, v, dout, l, d, dq, dk, dv, bh, bh_kv, seq, hd,
+                                       scale, causal, s);
+  return dispatch_bwd<float>(q, k, v, dout, l, d, dq, dk, dv, bh, bh_kv, seq, hd, scale, causal,
+                             s);
+}
+
+// Dynamic shared memory of the backward kernels at `hd`, in bytes (0 if
+// they do not take that hd).
+extern "C" int repro_flash_attention_bwd_smem_bytes(int hd) {
+  switch (hd) {
+    case 16: return static_cast<int>(BwdLayout<16>::kBytes);
+    case 32: return static_cast<int>(BwdLayout<32>::kBytes);
+    case 64: return static_cast<int>(BwdLayout<64>::kBytes);
+    case 128: return static_cast<int>(BwdLayout<128>::kBytes);
     default: return 0;
   }
 }

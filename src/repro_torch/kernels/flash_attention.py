@@ -1,20 +1,29 @@
 """Flash attention — wrapper of the Hopper kernels in
 ``csrc/flash_attention.cu``, the port of the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention_bhsd``.
+``repro/kernels/flash_attention.py::flash_attention_bhsd``, and of its
+gradient.
 
 :func:`flash_attention_bhsd` keeps the TPU kernel's contract: q
 ``[BHq, S, hd]``, k/v ``[BHkv, S, hd]``, causal or full, scaled by
 ``hd**-0.5``, query head ``b`` reading kv head ``b // (BHq // BHkv)``,
 output in ``q.dtype``.  On CPU tensors it runs
-:func:`flash_attention_bhsd_plain`; on CUDA tensors it launches one of
-two kernels or raises — there is no fallback, neither to the plain
-version nor from one kernel to the other:
+:func:`flash_attention_bhsd_plain`, which autograd differentiates; on
+CUDA tensors it launches one of two forward kernels or raises — there is
+no fallback, neither to the plain version nor from one kernel to the
+other:
 
 * ``"wgmma"``: bf16 at hd in :data:`WGMMA_HEAD_DIMS`, on the tensor
   cores with TMA loads (p split into two bf16 halves, so the numerics
   stay the TPU kernel's f32 softmax);
 * ``"cuda_core"``: every other call it takes (f32, and bf16 at hd 16 and
   32), f32 arithmetic on the CUDA cores.
+
+When grad mode is on and q, k or v requires grad, the CUDA call is a
+:class:`torch.autograd.Function`: the forward kernel also writes each
+row's log-sum-exp, and the gradient is the ``"backward"`` kernel (f32 on
+the CUDA cores, every call the forward takes), so attention's gradient
+on the card never silently vanishes.  The TPU kernel has no backward; JAX
+differentiates its jnp model path instead.
 """
 from __future__ import annotations
 
@@ -27,21 +36,23 @@ from ._build import load_library
 from .ref import check_attention_shapes, reference_attention
 
 __all__ = ["flash_attention_bhsd", "flash_attention_bhsd_plain",
-           "kernel_variant", "reset_launch_counts", "KERNEL_HEAD_DIMS",
-           "VARIANTS", "WGMMA_HEAD_DIMS"]
+           "flash_attention_bwd", "kernel_variant", "reset_launch_counts",
+           "KERNEL_HEAD_DIMS", "VARIANTS", "WGMMA_HEAD_DIMS"]
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
-VARIANTS = ("wgmma", "cuda_core")
+# the two forward kernels and the backward one, each counted on its own
+VARIANTS = ("wgmma", "cuda_core", "backward")
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _ENTRY = {"wgmma": "repro_flash_attention_fwd_wgmma",
-          "cuda_core": "repro_flash_attention_fwd"}
+          "cuda_core": "repro_flash_attention_fwd",
+          "backward": "repro_flash_attention_bwd"}
 # the plain version is the oracle itself: one plain attention in the port
 flash_attention_bhsd_plain = reference_attention
 
 
 def kernel_variant(dtype: torch.dtype, hd: int) -> str:
-    """The kernel that serves a CUDA call of this dtype and head dim."""
+    """The forward kernel that serves a CUDA call of this dtype and head dim."""
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "cuda_core"
 
 
@@ -49,29 +60,22 @@ def kernel_variant(dtype: torch.dtype, hd: int) -> str:
 def _kernel(variant: str):
     fn = getattr(load_library("flash_attention"), _ENTRY[variant])
     # pointers and the stream as c_void_p: ctypes would otherwise pass
-    # Python ints as 32-bit C ints and cut them
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    # Python ints as 32-bit C ints and cut them.  Forward: q, k, v, o, lse;
+    # backward: q, k, v, dO, lse, D (scratch), dq, dk, dv.
+    n_ptr = 9 if variant == "backward" else 5
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_bhsd(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Flash attention over a flattened (batch, head) leading dim.
-
-    CPU tensors take the plain version; CUDA tensors launch a kernel,
-    which takes contiguous f32 or bf16 tensors with hd in
-    :data:`KERNEL_HEAD_DIMS` (16-byte-aligned ones for the tensor-core
-    kernel, whose TMA loads need it); anything else raises.
-    """
-    check_attention_shapes(q, k, v)
+def _check_cuda(q, k, v) -> str:
+    """Raise unless the kernels take these CUDA tensors; the forward variant."""
     devices = {t.device for t in (q, k, v)}
-    if devices == {torch.device("cpu")}:
-        return flash_attention_bhsd_plain(q, k, v, causal=causal)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"q, k, v must all be on one CUDA device or all on "
                          f"the CPU; got {sorted(map(str, devices))}")
-    bh, s, hd = q.shape
+    _, s, hd = q.shape
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"kernel takes float32 or bfloat16, not {q.dtype}")
     if hd not in KERNEL_HEAD_DIMS:
@@ -84,19 +88,90 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if variant == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core kernel takes q, k, v at 16-byte-aligned "
                          "addresses (TMA); got a view that starts off that alignment")
-    o = torch.empty_like(q)
-    fn = _kernel(variant)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 bh, k.shape[0], s, hd, int(q.dtype == torch.bfloat16),
-                 int(causal), hd ** -0.5, stream)
+    return variant
+
+
+def _launch(variant: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(variant)(*args, stream)
     if err != 0:
         raise RuntimeError(f"flash attention {variant} kernel launch failed: "
                            f"cudaError_t {err}")
     flash_attention_bhsd.variant_launches[variant] += 1
     flash_attention_bhsd.launches += 1
-    return o
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """(o, lse or None) from one forward launch on checked CUDA tensors."""
+    variant = _check_cuda(q, k, v)
+    bh, s, hd = q.shape
+    o = torch.empty_like(q)
+    lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    _launch(variant, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), bh, k.shape[0], s, hd,
+            int(q.dtype == torch.bfloat16), int(causal), hd ** -0.5)
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, lse, do, *, causal: bool = True):
+    """(dq, dk, dv) of :func:`flash_attention_bhsd` at q, k, v for the
+    output gradient ``do``, from the forward's ``lse`` (f32 ``[BHq, S]``).
+
+    One launch of the backward kernel; it takes what the forward kernels
+    take (``do`` in q's dtype and shape) and raises on anything else."""
+    _check_cuda(q, k, v)
+    bh, s, hd = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if (lse.shape != (bh, s) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 [{bh}, {s}] tensor on q's device")
+    do = do.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    _launch("backward", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, k.shape[0], s, hd, int(q.dtype == torch.bfloat16), int(causal), hd ** -0.5)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its lse saved, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = _forward(q, k, v, causal, with_lse=True)
+        # the backward sums D from p * dP itself, so it needs no o
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, lse, do, causal=ctx.causal), None)
+
+
+def flash_attention_bhsd(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Flash attention over a flattened (batch, head) leading dim.
+
+    CPU tensors take the plain version.  CUDA tensors launch a kernel,
+    which takes contiguous f32 or bf16 tensors with hd in
+    :data:`KERNEL_HEAD_DIMS` (16-byte-aligned ones for the tensor-core
+    kernel, whose TMA loads need it); anything else raises.  Under grad
+    mode with an input that requires grad, the result carries the
+    backward kernel as its ``grad_fn``.
+    """
+    check_attention_shapes(q, k, v)
+    if {t.device for t in (q, k, v)} == {torch.device("cpu")}:
+        return flash_attention_bhsd_plain(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, with_lse=False)[0]
 
 
 def reset_launch_counts() -> None:

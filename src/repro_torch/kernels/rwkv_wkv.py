@@ -19,6 +19,10 @@ other:
   split into bf16 parts so the result stays the f32 recurrence's;
 * ``"sequential"``: every other call it takes (f32 r/k/v, hd 8-32, short
   S such as the S = 1 decode step), one step at a time on the CUDA cores.
+
+Neither kernel has a backward yet: a CUDA call under grad mode with an
+input that requires grad raises, rather than return an output that
+autograd cannot see through.
 """
 from __future__ import annotations
 
@@ -103,7 +107,9 @@ def wkv_bhsd(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     unit stride over hd (16-byte-aligned bases and strides for the
     chunked kernel, whose cp.async loads need them); u f32 or bf16
     (upcast here, which is exact); a contiguous f32 s0; hd in
-    :data:`KERNEL_HEAD_DIMS` and S >= 1.  Anything else raises.
+    :data:`KERNEL_HEAD_DIMS` and S >= 1.  Anything else raises, and so
+    does a call under grad mode with an input that requires grad: the
+    kernels have no backward yet.
     """
     check_wkv_shapes(r, k, v, w, u, s0)
     devices = {t.device for t in (r, k, v, w, u, s0)}
@@ -112,6 +118,14 @@ def wkv_bhsd(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     if len(devices) != 1 or r.device.type != "cuda":
         raise ValueError(f"r, k, v, w, u, s0 must all be on one CUDA device or all "
                          f"on the CPU; got {sorted(map(str, devices))}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, s0)):
+        # the kernels' outputs carry no grad_fn: a loss through them would
+        # silently lose every gradient that passes the recurrence
+        raise RuntimeError(
+            "the WKV kernels have no backward yet, so a CUDA call under grad "
+            "cannot be differentiated; RWKV training on the card waits for the "
+            "WKV backward kernel (ROADMAP.md, queue 2 B). Call it under "
+            "torch.no_grad() or on CPU tensors")
     b, h, s, hd = r.shape
     for name, t in (("r/k/v", r), ("w", w), ("u", u)):
         if t.dtype not in _KERNEL_DTYPES:

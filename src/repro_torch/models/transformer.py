@@ -2,17 +2,21 @@
 
 The port has the dense attention path (llama3_8b, granite_8b,
 minitron_4b, qwen25_32b) and the attention-free RWKV6 path
-(rwkv6_1b6).  MoE, Mamba, cross-attention and encoder–decoder layers,
-the int8 KV cache, the training loss and remat arrive with their own
-slices; a config that needs them raises here.
+(rwkv6_1b6), each with serving (``forward``, ``decode_step``) and the
+training loss (``loss``, with ``remat`` "none" or "full").  MoE, Mamba,
+cross-attention and encoder–decoder layers, the int8 KV cache and the
+"dots" remat policy arrive with their own slices; a config that needs
+them raises here.
 
 The parameters keep the JAX tree's key paths and layouts, so weights
 map 1:1 (:mod:`repro_torch.convert`): ``embed``, ``final_norm``,
 ``lm_head`` and ``blocks[j]``, each leaf stacked ``[n_rep, ...]`` over
 the repeats of period position ``j``; weights are ``[in, out]`` and
 applied as ``x @ W``.  ``jax.lax.scan`` over the stacked layers is a
-Python loop over the repeats.  The parameters do not require grad: the
-port serves and does not train yet.
+Python loop over the repeats.  The parameters do not require grad, so
+serving builds no graph; the trainer turns grad on for what it trains.
+On the card, attention's gradient is the flash backward kernel; the WKV
+kernels have no backward yet and raise under grad.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
@@ -99,20 +104,31 @@ class LM(nn.Module):
     KV chunk of the CPU attention scan and ``rwkv_chunk`` the chunk of
     the CPU WKV (:func:`repro_torch.models.rwkv.wkv_chunked`); on the
     card both run kernels.  ``max_seq`` sizes the RoPE table that decode
-    reads (default 8192).
+    reads (default 8192).  ``remat`` is the activation checkpointing of
+    each layer under a loss: "none" saves every layer's activations,
+    "full" recomputes each layer in the backward pass (JAX's
+    ``jax.checkpoint`` of the layer body); JAX's "dots" policy is not
+    ported.
     """
 
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.bfloat16,
                  attn_chunk: int = 512, max_seq: int = 0,
-                 rwkv_chunk: int = 16, seed: int = 0,
+                 rwkv_chunk: int = 16, remat: str = "none", seed: int = 0,
                  device="cuda") -> None:
         super().__init__()
         device = resolve_device(device)
+        if remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save the matmul outputs, recompute the rest) is "
+                "not ported yet; use 'none' or 'full'")
+        if remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full', not {remat!r}")
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.attn_chunk = attn_chunk
         self.max_seq = max_seq or 8192
         self.rwkv_chunk = rwkv_chunk
+        self.remat = remat
 
         p = _lcm(
             cfg.attn_layer_period or 1,
@@ -130,7 +146,7 @@ class LM(nn.Module):
                 raise NotImplementedError(
                     f"{cfg.name}: {spec} layers are not ported yet; they "
                     f"arrive with the {later} slice")
-        self._init_params(Initializer(seed, param_dtype, device))
+        self.init_params(seed, device)
         # Built once here: the JAX decode_step rebuilds the same f32
         # table for max_seq on every call.
         self.register_buffer(
@@ -180,6 +196,12 @@ class LM(nn.Module):
                 "w_down": init.normal((cfg.d_ff, d), fan_in=cfg.d_ff),
             },
         }
+
+    def init_params(self, seed: int, device=None) -> None:
+        """Draw every parameter anew from ``seed``, as construction does
+        (the JAX ``LM.init(seed)``); they do not require grad."""
+        self._init_params(Initializer(seed, self.param_dtype,
+                                      device or self.device))
 
     def _init_params(self, init: Initializer) -> None:
         cfg = self.cfg
@@ -269,8 +291,17 @@ class LM(nn.Module):
         # then of position 1, ...
         for spec, block in zip(self.specs, self.blocks):
             for r in range(self.n_rep):
-                x = self._layer_seq(block.rep(r), spec, x, cos_sin, positions)
+                if self.remat == "full":
+                    x = checkpoint(self._rep_layer, block, r, spec, x, cos_sin,
+                                   positions, use_reentrant=False)
+                else:
+                    x = self._layer_seq(block.rep(r), spec, x, cos_sin, positions)
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+
+    def _rep_layer(self, block, r, spec, x, cos_sin, positions):
+        # the repeat's views are taken inside, so the checkpoint saves
+        # none of them
+        return self._layer_seq(block.rep(r), spec, x, cos_sin, positions)
 
     def forward(self, tokens: torch.Tensor, last_only: bool = False):
         """Causal logits [B, S, V] (f32). tokens: [B, S] int.
@@ -282,6 +313,55 @@ class LM(nn.Module):
         if last_only:
             x = x[:, -1:]
         return unembed(x, self._table())
+
+    # ------------------------------------------------------------------ #
+    # training loss
+    # ------------------------------------------------------------------ #
+    def loss(self, batch: dict, vocab_chunk: int = 512) -> torch.Tensor:
+        """Next-token cross entropy (f32 scalar), chunked over the sequence
+        so the [B, S, V] logits tensor is never resident.  batch:
+        ``tokens`` and ``labels`` [B, S] int, optional ``mask`` [B, S].
+
+        The JAX function's rules: ``vocab_chunk`` splits S only when it
+        divides S (else one chunk of S); a missing mask counts every
+        position and the divisor is at least 1; a label outside [0, V)
+        matches no vocabulary entry (``jax.nn.one_hot`` gives a zero row),
+        so its position adds the chunk's log-sum-exp alone; the MoE
+        load-balancing term is added at 0.01 (0 without MoE layers).
+        Each chunk is checkpointed, as ``@jax.checkpoint`` does there, so
+        no chunk's [B, c, V] logits are saved for the backward pass.
+        """
+        x = self.hidden_states(batch["tokens"])
+        aux = 0.0                       # no MoE layers: no aux loss
+        labels = batch["labels"]
+        table = self._table()
+        b, s, _ = x.shape
+        chunk = min(vocab_chunk, s)
+        n_chunks = s // chunk if s % chunk == 0 else 1
+        if s % chunk != 0:
+            chunk = s
+        mask = batch.get("mask")
+        mask = (torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+                if mask is None else mask.to(torch.float32))
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        denom = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(n_chunks):
+            part = slice(c * chunk, (c + 1) * chunk)
+            total = total + checkpoint(self._chunk_nll, x[:, part], labels[:, part],
+                                       mask[:, part], table, use_reentrant=False)
+            denom = denom + mask[:, part].sum()
+        return total / torch.clamp(denom, min=1.0) + 0.01 * aux
+
+    def _chunk_nll(self, x, labels, mask, table) -> torch.Tensor:
+        """Masked sum of one chunk's next-token NLL (f32)."""
+        logits = unembed(x, table)                              # [B, c, V] f32
+        lse = torch.logsumexp(logits, dim=-1)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        onehot = (labels[..., None] == vocab).to(self.param_dtype)
+        # JAX's einsum of f32 logits with the param-dtype one-hot: promoted
+        # to f32, every entry but the label's multiplied by zero
+        picked = (logits * onehot).sum(dim=-1)
+        return ((lse - picked) * mask).sum()
 
     # ------------------------------------------------------------------ #
     # serving: decode

@@ -27,7 +27,11 @@ def _port_modules():
 def test_every_module_imports_with_jax_and_repro_blocked():
     modules = _port_modules()
     for name in ("repro_torch.models.transformer", "repro_torch.models.rwkv",
-                 "repro_torch.kernels.rwkv_wkv", "repro_torch.configs.rwkv6_1b6"):
+                 "repro_torch.kernels.rwkv_wkv", "repro_torch.configs.rwkv6_1b6",
+                 "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                 "repro_torch.optim.schedules", "repro_torch.checkpoint.checkpointer",
+                 "repro_torch.runtime.fault", "repro_torch.runtime.train_loop",
+                 "repro_torch.launch.train"):
         assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys

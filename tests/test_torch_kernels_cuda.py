@@ -16,7 +16,9 @@ WKV out: rtol 1e-5 in f32 and 2**-7 in bf16 on the same grounds, and an
 atol of 2e-4 in both, 20 standard deviations of the f32 difference
 between two summation orders of the 64 products r_i (S_ij + u_i k_i v_j),
 whose partial sums reach about 25 once the state is in steady state.
-The WKV state is f32 in every case: 1e-5.  The sequential WKV kernel
+The WKV state is f32 in every case: 1e-5.  The flash backward kernel is
+held against autograd of the plain version at the forward's limits (see
+``_BWD_SHAPES``).  The sequential WKV kernel
 updates it one step at a time; the chunked one sums 16 steps' updates
 from bf16 parts of k*E that keep f32 precision, which
 tests/test_torch_wkv_numerics.py rehearses at the same limit.
@@ -27,11 +29,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (flash_attention_bhsd, flash_attention_bhsd_plain,
-                                 rwkv_wkv, wkv_bhsd, wkv_bhsd_plain)
+from repro_torch.kernels import (flash_attention, flash_attention_bhsd,
+                                 flash_attention_bhsd_plain, rwkv_wkv, wkv_bhsd,
+                                 wkv_bhsd_plain)
 from repro_torch.kernels.flash_attention import kernel_variant
 
-# the module: the package's ``rwkv_wkv`` is the model-layout function
+# the modules: the package's ``flash_attention`` and ``rwkv_wkv`` are the
+# model-layout functions
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 wkvk = importlib.import_module("repro_torch.kernels.rwkv_wkv")
 
 _SHAPES = [
@@ -124,6 +129,120 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="16-byte-aligned"):
         flash_attention_bhsd(kb.repeat(2, 1, 1), qm[:2], kb)
     assert flash_attention_bhsd.launches == before     # nothing launched, nothing fell back
+
+
+# The backward kernel: S=1, MHA, GQA, MQA, S off the 64-row tile, ragged S
+# over many tiles, both head dims of the tensor-core forward.  Limits: f32
+# 2e-5, as the forward (summation order); bf16 atol 1e-5 and rtol 2**-7:
+# kernel and autograd of the plain version both compute the gradients in
+# f32 from the same bf16 inputs and round once to bf16 (the kernel sums D
+# from p * dP, as autograd's softmax backward does, not from the rounded o).
+_BWD_SHAPES = [(1, 1, 4, 1, 128), (1, 32, 2, 2, 16), (2, 64, 4, 2, 32),
+               (1, 128, 8, 1, 64), (2, 48, 4, 4, 128), (1, 1000, 4, 2, 128),
+               (2, 300, 8, 2, 64)]
+
+
+def _grads(fn, q, k, v, do, causal):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, causal=causal)
+    return out, torch.autograd.grad(out, leaves, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,hd", _BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_matches_autograd_of_plain(card, b, s, h, hkv, hd, dtype, causal):
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    gen = torch.Generator(device=card).manual_seed(7 * s + hd)
+    q, k, v, do = (torch.randn((b * n, s, hd), generator=gen, device=card).to(tdt)
+                   for n in (h, hkv, hkv, h))
+    counts = dict(flash_attention_bhsd.variant_launches)
+    out, grads = _grads(flash_attention_bhsd, q, k, v, do, causal)
+    torch.cuda.synchronize()
+    forward = kernel_variant(tdt, hd)
+    want = {name: n + (name in (forward, "backward")) for name, n in counts.items()}
+    assert flash_attention_bhsd.variant_launches == want
+    # the forward under grad (lse written) returns what serving's does
+    with torch.no_grad():
+        assert torch.equal(out, flash_attention_bhsd(q, k, v, causal=causal))
+    _, ref = _grads(flash_attention_bhsd_plain, q, k, v, do, causal)
+    atol, rtol = (2e-5, 2e-5) if dtype == "f32" else (1e-5, 2.0 ** -7)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == tdt and g.shape == r.shape, name
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [("f32", 64), ("bf16", 64), ("bf16", 128), ("bf16", 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_lse_is_the_rows_logsumexp(card, dtype, hd, causal):
+    """Both forward kernels' lse output, in natural-log units, against
+    logsumexp of the plain version's scaled, masked f32 scores."""
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    gen = torch.Generator(device=card).manual_seed(hd)
+    s = 300
+    q, k, v = (torch.randn((n, s, hd), generator=gen, device=card).to(tdt) for n in (8, 2, 2))
+    _, lse = fa_mod._forward(q, k, v, causal, with_lse=True)
+    scores = (q.float().reshape(2, 4, s, hd) * hd ** -0.5) @ k.float()[:, None].transpose(-1, -2)
+    if causal:
+        scores = scores.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=card).tril(),
+                                    float("-inf"))
+    ref = torch.logsumexp(scores, dim=-1).reshape(8, s)
+    torch.testing.assert_close(lse, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic_and_reaches_model_layout(card):
+    """Two identical backward calls give bit-identical gradients (no
+    atomics), and grads reach q, k and v through ops.flash_attention's
+    layout copies."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn((2, 200, 8, 128), generator=gen, device=card).bfloat16()
+    k, v = (torch.randn((2, 200, 2, 128), generator=gen, device=card).bfloat16()
+            for _ in range(2))
+    do = torch.randn_like(q)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=True)
+        runs.append(torch.autograd.grad(out, leaves, do))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b) and bool(a.abs().sum() > 0)
+
+
+@pytest.mark.cuda
+def test_flash_backward_rejects_what_it_does_not_take(card):
+    q = torch.randn(4, 8, 128, device=card)
+    kv = torch.randn(2, 8, 128, device=card)
+    lse = torch.zeros(4, 8, device=card)
+    before = flash_attention_bhsd.launches
+    with pytest.raises(ValueError, match="dO"):
+        fa_mod.flash_attention_bwd(q, kv, kv, lse, q.bfloat16())
+    with pytest.raises(ValueError, match="lse"):
+        fa_mod.flash_attention_bwd(q, kv, kv, lse.bfloat16(), q)
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.randn(4, 8, 96, device=card, requires_grad=True)
+        flash_attention_bhsd(x, kv[..., :96].contiguous(), kv[..., :96].contiguous())
+    assert flash_attention_bhsd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 64])
+def test_wkv_raises_under_grad_on_the_card(card, s):
+    """The WKV kernels have no backward: a CUDA call that would need one
+    raises instead of returning an output without a grad_fn."""
+    args = list(_wkv_inputs(1, s, 2, 64, "bf16", "model", 1, card))
+    args[0].requires_grad_()
+    before = wkv_bhsd.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv_bhsd(*args)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rwkv_wkv(*(x.transpose(1, 2) for x in args[:4]), args[4])
+    assert wkv_bhsd.launches == before
+    with torch.no_grad():
+        wkv_bhsd(*args)
+    assert wkv_bhsd.launches == before + 1
 
 
 # WKV: (b, s, h, hd) — tests/test_kernels.py::TestRwkvWkv's shapes and a
