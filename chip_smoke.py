@@ -11,7 +11,8 @@ a non-zero exit if it fails:
                ``nvcc`` per source, all started together; ptxas registers,
                spills and shared memory of each; ``cuobjdump -sass`` must
                show HGMMA (wgmma) and UTMALDG (TMA loads) in every
-               instantiation of the tensor-core flash kernel, and HMMA
+               instantiation of the tensor-core flash forward and of both
+               kernels of the tensor-core flash backward, and HMMA
                (mma.sync) and LDGSTS (cp.async) in every instantiation of
                the chunked WKV kernel
 2. kernel      ``flash_attention_bhsd`` vs its plain version on the card, f32
@@ -54,16 +55,20 @@ a non-zero exit if it fails:
                over one prefill call and one decode step;
                ``serve.main(["--arch", "rwkv6_1b6", "--production", ...])``
                — RWKV's main path, whose WKV launches are counted by kernel
-8. backward    the flash backward kernel (through ``flash_attention_bhsd``'s
+8. backward    both flash backward kernels (through ``flash_attention_bhsd``'s
                autograd Function) vs autograd of the plain version: dQ, dK
                and dV, f32 and bf16, causal both ways, at the test shapes,
                a ragged S=1000, the training shape and every shape the
-               training phases give it; each row names the forward kernel
-               that served it; at S >= 256 a planted fault (one dO tile
-               zeroed in the plain run) that the limit must reject; times
-               at the training shape: the backward kernel, its bound,
-               autograd of the plain version and SDPA's backward (the
-               yardstick only)
+               training phases give it; each row names the forward and
+               the backward kernel that served it; at S >= 256 a planted
+               fault (one dO tile zeroed in the plain run) that the limit
+               must reject; every tensor-core backward call run twice,
+               which must give identical bits; times at the training
+               shape: the tensor-core and the CUDA-core backward on the
+               same bf16 inputs, the CUDA-core one in f32, autograd of the
+               plain version and SDPA's backward (the yardstick only),
+               the five-product bound and the bound of the products the
+               tensor-core kernel runs (``WGMMA_BWD_PRODUCTS``)
 9. gradients   full width, 4 layers, f32 (TF32 off): ``LM.loss`` and every
                gradient leaf through the kernels vs the same with
                ``gqa_attention`` routed to the chunked torch scan
@@ -71,7 +76,9 @@ a non-zero exit if it fails:
                AdamW state, B=1 x S=4096: ``Trainer.step_fn`` on one
                repeated ``SyntheticTokens`` batch; train tokens/s, the
                forward/backward/AdamW split (CUDA events), peak memory and
-               kernel launches per step, a profiler window over one step,
+               kernel launches per step (8 tensor-core backward launches,
+               no CUDA-core one), a profiler window over one step (with
+               the flash kernels' own device time),
                one ``remat="full"`` step, then the falling loss from fresh
                weights — the training main path, whose backward launches
                are counted
@@ -169,6 +176,11 @@ BWD_SHAPES = KERNEL_SHAPES[:-2] + [
 # noise near zero.  A limit that does not scale with the output would let
 # a dropped tile through at S=4096, where |output| is about 0.03.
 TOL = {"f32": (2e-5, 2e-5), "bf16": (1e-5, 2.0 ** -7)}
+# bf16 products per pair of q row and key that the tensor-core backward
+# runs (csrc/flash_attention.cu): S and dP twice in the dQ kernel and dS.K
+# as hi and lo; S^T and dP^T in the dK/dV kernel (twice at hd 128, where
+# both warpgroups of a block compute them), P^T.dO and dS^T.q as hi and lo
+WGMMA_BWD_PRODUCTS = {64: 12, 128: 14}
 
 # WKV shapes (b, s, h, hd): the JAX kernel tests' and a ragged S at the
 # rwkv6_1b6 heads, contiguous; then what the RWKV phases give the kernel,
@@ -300,12 +312,20 @@ def phase_build() -> None:
     emit("build", seconds=secs, kernels=list(KERNEL_SOURCES))
     lib = _build.load_library("flash_attention")
     emit("build", kernel="flash_attention", wgmma_dynamic_smem_bytes={
-        hd: lib.repro_flash_attention_wgmma_smem_bytes(hd) for hd in fa.WGMMA_HEAD_DIMS})
-    sass = sass_instructions("flash_attention", "flash_fwd_wgmma_kernel", ("HGMMA", "UTMALDG"))
-    emit("build", kernel="flash_attention", sass=sass)
-    check(len(sass) == len(fa.WGMMA_HEAD_DIMS) and
-          all(n > 0 for counts in sass.values() for n in counts.values()),
-          f"the tensor-core flash kernel lacks HGMMA or UTMALDG in its SASS: {sass}")
+        hd: lib.repro_flash_attention_wgmma_smem_bytes(hd) for hd in fa.WGMMA_HEAD_DIMS},
+         backward_wgmma_dynamic_smem_bytes={
+             hd: {"dq": lib.repro_flash_attention_bwd_wgmma_smem_bytes(hd, 0),
+                  "dkdv": lib.repro_flash_attention_bwd_wgmma_smem_bytes(hd, 1)}
+             for hd in fa.WGMMA_HEAD_DIMS})
+    # the tensor-core forward and both kernels of the tensor-core backward;
+    # LDL/STL count local-memory loads and stores (spills)
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                   "flash_bwd_dkdv_wgmma_kernel"):
+        sass = sass_instructions("flash_attention", kernel, ("HGMMA", "UTMALDG", "LDL", "STL"))
+        emit("build", kernel="flash_attention", sass=sass)
+        check(len(sass) == len(fa.WGMMA_HEAD_DIMS) and
+              all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in sass.values()),
+              f"{kernel} lacks HGMMA or UTMALDG in its SASS: {sass}")
     lib = _build.load_library("rwkv_wkv")
     emit("build", kernel="rwkv_wkv", chunked_dynamic_smem_bytes={
         f"{'bf16' if bw else 'f32'}_w": lib.repro_wkv_chunked_smem_bytes(bw) for bw in (0, 1)})
@@ -685,7 +705,7 @@ def phase_prefill(model) -> dict:
         launches.append(dict(fa.flash_attention_bhsd.variant_launches))
         check(tuple(logits.shape) == (b, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
-        check(launches[-1] == {"wgmma": cfg.n_layers, "cuda_core": 0, "backward": 0},
+        check(launches[-1] == flash_counts(wgmma=cfg.n_layers),
               f"kernel launches in one prefill {launches[-1]}, want {cfg.n_layers} "
               f"of the tensor-core kernel")
     peak = torch.cuda.max_memory_allocated()
@@ -714,7 +734,7 @@ def phase_consistency(cfg_full) -> int:
     fa.reset_launch_counts()
     last = serve.prefill(model, tokens)
     launches = dict(fa.flash_attention_bhsd.variant_launches)
-    check(launches == {"wgmma": 0, "cuda_core": cfg.n_layers, "backward": 0},
+    check(launches == flash_counts(cuda_core=cfg.n_layers),
           f"f32 prefill kernel launches {launches}, want {cfg.n_layers} of the CUDA-core kernel")
     with torch.no_grad():
         full = model(tokens)
@@ -760,11 +780,11 @@ def phase_serve(model) -> dict:
     return row
 
 
-def profile_window(fn, reps: int, top: int = 6) -> dict:
+def profile_window(fn, reps: int, top: int = 6, named: str = "") -> dict:
     """Wall time per call unprofiled, then device time per call and the
-    top kernels from ``torch.profiler`` over the same calls.  The
-    device-busy share compares the two: the profiler's own host cost
-    does not enter the wall time."""
+    top kernels from ``torch.profiler`` over the same calls (and every
+    kernel whose name contains ``named``).  The device-busy share compares
+    the two: the profiler's own host cost does not enter the wall time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     _, secs, gc_secs = timed_call(lambda: [fn() for _ in range(reps)])
@@ -785,9 +805,12 @@ def profile_window(fn, reps: int, top: int = 6) -> dict:
         per_name[e.key] = per_name.get(e.key, 0.0) + us / 1e3 / reps
     device_ms = sum(per_name.values())
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(reps=reps, wall_ms=wall_ms, gc_ms_in_wall=gc_secs * 1e3, device_ms=device_ms,
-                device_busy_share=device_ms / wall_ms,
-                top_device_ms=[[name[:80], ms] for name, ms in ranked])
+    row = dict(reps=reps, wall_ms=wall_ms, gc_ms_in_wall=gc_secs * 1e3, device_ms=device_ms,
+               device_busy_share=device_ms / wall_ms,
+               top_device_ms=[[name[:80], ms] for name, ms in ranked])
+    if named:
+        row["named_device_ms"] = {name[:80]: ms for name, ms in per_name.items() if named in name}
+    return row
 
 
 def phase_profile(model) -> None:
@@ -903,6 +926,12 @@ def reset_launches() -> None:
     wkv.reset_launch_counts()
 
 
+def flash_counts(**launches) -> dict:
+    """A full ``variant_launches`` dict of the flash kernels: the given
+    counts, 0 for every other variant."""
+    return {**dict.fromkeys(fa.VARIANTS, 0), **launches}
+
+
 def phase_main_path() -> int:
     """``serve.main --production``: prefill then greedy decode on the card."""
     argv = ["--arch", "llama3_8b", "--production", "--batch", str(MAIN_PATH[0]),
@@ -916,7 +945,7 @@ def phase_main_path() -> int:
          kernel_launches=launches, wkv_launches=wkv.wkv_bhsd.launches)
     check(rc == 0, f"serve.main exited {rc}")
     want = get_config("llama3_8b").n_layers    # one launch per layer, one prefill
-    check(launches == {"wgmma": want, "cuda_core": 0, "backward": 0},
+    check(launches == flash_counts(wgmma=want),
           f"kernel launches on the main path {launches}, want {want} of the tensor-core kernel")
     check(wkv.wkv_bhsd.launches == 0, "the llama path launched the WKV kernel")
     return launches["wgmma"]
@@ -1056,8 +1085,9 @@ def planted_bwd_fault(q, k, v, do, causal):
 
 
 def phase_backward() -> tuple[dict, list]:
-    """The backward kernel vs autograd of the plain version at every shape
-    and dtype; times at the training shape."""
+    """Both backward kernels vs autograd of the plain version at every
+    shape and dtype; the tensor-core one run twice for identical bits;
+    times at the training shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     timed, rows = {}, []
@@ -1076,14 +1106,20 @@ def phase_backward() -> tuple[dict, list]:
                 ratios = {g: limit_ratio(out.float(), r.float(), atol, rtol)
                           for g, out, r in zip(("dq", "dk", "dv"), grads, ref)}
                 row = dict(shape=[b, s, h, hkv, hd], dtype=name, causal=causal,
-                           forward_kernel=fa.kernel_variant(dt, hd), launched=served,
+                           forward_kernel=fa.kernel_variant(dt, hd),
+                           backward_kernel=fa.backward_variant(dt, hd), launched=served,
                            max_abs_err=max(float((g.float() - r.float()).abs().max())
                                            for g, r in zip(grads, ref)),
                            limit_ratio_by_grad=ratios, limit_ratio=max(ratios.values()),
                            atol=atol, rtol=rtol)
                 row["ok"] = row["limit_ratio"] <= 1
-                check(served == sorted(["backward", row["forward_kernel"]]),
+                check(served == sorted([row["backward_kernel"], row["forward_kernel"]]),
                       f"launch counts show {served} serving {row}")
+                if row["backward_kernel"] == "backward_wgmma":
+                    again = attention_grads(fa.flash_attention_bhsd, q, k, v, do, causal)[1]
+                    row["two_calls_bit_equal"] = all(torch.equal(a, g)
+                                                     for a, g in zip(again, grads))
+                    del again
                 if s >= 256:
                     bad = planted_bwd_fault(q, k, v, do, causal)
                     row["fault_limit_ratio"] = max(limit_ratio(x.float(), r.float(), atol, rtol)
@@ -1099,20 +1135,41 @@ def phase_backward() -> tuple[dict, list]:
                                  f"version: {row}")
                 check(row.get("fault_rejected", True),
                       f"the limit lets a zeroed dO tile through: {row}")
+                check(row.get("two_calls_bit_equal", True),
+                      f"two identical tensor-core backward calls differ: {row}")
                 del grads, ref
             del q, k, v, do
     return timed, rows
 
 
+def cuda_core_bwd_bf16_ms(q, k, v, lse, do, reps: int) -> float:
+    """The CUDA-core backward's time on bf16 inputs that the wrapper sends
+    to the tensor-core one: the earlier design, timed in the same run.
+    Called through its C entry point, so no launch count moves."""
+    bh, s, hd = q.shape
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = fa._kernel("backward")
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),  # noqa: E731
+                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), bh, k.shape[0], s, hd, 1, 1, hd ** -0.5, stream)
+    check(launch() == 0, "the CUDA-core backward refused a bf16 launch")
+    return time_ms(launch, reps)
+
+
 def backward_times(q, k, v, do, name) -> dict:
-    """The backward kernel alone, backward only of autograd of the plain
-    version and of SDPA (the yardstick: the port never calls it), on the
-    same inputs; the bound from this shape's work."""
+    """The backward kernel that serves these inputs alone (and, in bf16,
+    the CUDA-core one on the same inputs), backward only of autograd of
+    the plain version and of SDPA (the yardstick: the port never calls
+    it); the bound from this shape's work."""
     bh, s, hd = q.shape
     reps = 5
     _, lse = fa._forward(q, k, v, True, with_lse=True)
     row = dict(kernel_ms=time_ms(
-        lambda: fa.flash_attention_bwd(q, k, v, lse, do, causal=True), reps))
+        lambda: fa.flash_attention_bwd(q, k, v, lse, do, causal=True), 10))
+    if name == "bf16":
+        row["cuda_core_kernel_ms"] = cuda_core_bwd_bf16_ms(q, k, v, lse, do, reps)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = fa.flash_attention_bhsd_plain(*leaves, causal=True)
     row["plain_ms"] = time_ms(
@@ -1126,10 +1183,17 @@ def backward_times(q, k, v, do, name) -> dict:
     row["library_ms"] = time_ms(
         lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True), reps)
     del out
+    flops = bwd_flops(bh, s, hd, True)
     row["bound_ms"], row["bound_by"] = bwd_bound_ms(bh, k.shape[0], s, hd, True, name,
                                                     q.element_size())
-    row["f32_cuda_core_bound_ms"] = bwd_flops(bh, s, hd, True) / PEAK_FLOPS["f32"] * 1e3
-    row["kernel_tflops"] = bwd_flops(bh, s, hd, True) / row["kernel_ms"] / 1e9
+    if name == "bf16":
+        # the products the tensor-core kernel runs, against the algorithm's 5
+        row["executed_products"] = WGMMA_BWD_PRODUCTS[hd]
+        row["executed_bound_ms"] = flops * WGMMA_BWD_PRODUCTS[hd] / 5 / PEAK_FLOPS["bf16"] * 1e3
+        row["executed_bound_share"] = row["executed_bound_ms"] / row["kernel_ms"]
+        row["cuda_core_over_kernel"] = row["cuda_core_kernel_ms"] / row["kernel_ms"]
+    row["f32_cuda_core_bound_ms"] = flops / PEAK_FLOPS["f32"] * 1e3
+    row["kernel_tflops"] = flops / row["kernel_ms"] / 1e9
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
     row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
     return row
@@ -1189,7 +1253,7 @@ def phase_gradients(cfg_full) -> int:
                median_rel_err=statistics.median(errs.values()), limit=GRAD_TOL,
                kernel_launches=launches, scan_route_flash_launches=scan_launches)
     emit("gradients", **row)
-    check(launches == {"wgmma": 0, "cuda_core": cfg.n_layers, "backward": cfg.n_layers},
+    check(launches == flash_counts(cuda_core=cfg.n_layers, backward=cfg.n_layers),
           f"kernel-route launches {launches}")
     check(scan_launches == 0, "the scan route launched a flash kernel")
     check(all(e <= GRAD_TOL for e in errs.values()) and abs(loss_k - loss_s) < 1e-4,
@@ -1235,7 +1299,8 @@ def phase_train(cfg_full) -> dict:
                            (("forward", "backward"), ("backward", "adamw"), ("adamw", "end"))})
         launches = dict(fa.flash_attention_bhsd.variant_launches)
         peak = torch.cuda.max_memory_allocated()
-        profile = profile_window(lambda: trainer.step_fn(params, opt_state, batch), 1, top=10)
+        profile = profile_window(lambda: trainer.step_fn(params, opt_state, batch), 1, top=10,
+                                 named="flash")
         # one step with every layer recomputed in the backward pass
         trainer.model.remat = "full"
         torch.cuda.reset_peak_memory_stats()
@@ -1269,11 +1334,10 @@ def phase_train(cfg_full) -> dict:
                                peak_memory_gb=remat_peak / 1e9),
                profile=profile)
     emit("train", **row)
-    want = {"wgmma": cfg.n_layers * TRAIN_STEPS, "cuda_core": 0,
-            "backward": cfg.n_layers * TRAIN_STEPS}
+    want = flash_counts(wgmma=cfg.n_layers * TRAIN_STEPS,
+                        backward_wgmma=cfg.n_layers * TRAIN_STEPS)
     check(launches == want, f"training launches {launches}, want {want}")
-    check(remat_launches == {"wgmma": 2 * cfg.n_layers, "cuda_core": 0,
-                             "backward": cfg.n_layers},
+    check(remat_launches == flash_counts(wgmma=2 * cfg.n_layers, backward_wgmma=cfg.n_layers),
           f"remat='full' step launches {remat_launches}")
     check(all(np.isfinite(losses + falling)), f"training losses are not finite: {row}")
     # warmup-cosine's first scale is 0: steps 0 and 1 see the same weights
@@ -1313,17 +1377,18 @@ def phase_trainer() -> dict:
           f"the faulted run did not resume from the step-3 checkpoint: {row}")
     check(row["bit_equal"], f"losses after the restart differ from the unfaulted run: {row}")
     check(all(np.isfinite(ref["loss"])), "trainer losses are not finite")
-    check(launches == {"wgmma": 0, "cuda_core": steps * cfg.n_layers,
-                       "backward": steps * cfg.n_layers},
+    check(launches == flash_counts(cuda_core=steps * cfg.n_layers, backward=steps * cfg.n_layers),
           f"trainer launches {launches}")
     return row
 
 
-def backward_row(main_row: dict, checks: list, launches: int, path: str) -> dict:
-    """The kernels-line entry of the backward kernel: errors over every
-    phase-8 row, times at the training shape in bf16."""
-    return {
-        "name": "flash_attention_bwd[backward]",
+def backward_row(main_row: dict, checks: list, variant: str, launches: int, path: str) -> dict:
+    """The kernels-line entry of one backward kernel: errors over the
+    phase-8 rows it served, times at the training shape in the dtype it
+    serves there."""
+    mine = [r for r in checks if r["backward_kernel"] == variant]
+    row = {
+        "name": f"flash_attention_bwd[{variant}]",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
@@ -1331,15 +1396,16 @@ def backward_row(main_row: dict, checks: list, launches: int, path: str) -> dict
                           "only and JAX differentiates its jnp model path"),
         "launches": launches,
         "launches_counted_on": path,
-        "serves": "every CUDA call of flash_attention_bhsd under grad: f32 and bf16, hd 16-128",
-        "max_abs_err": max(r["max_abs_err"] for r in checks),
-        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in checks if r["dtype"] == d)
-                                 for d in TOL},
+        "serves": ("bf16 at hd 64 and 128 under grad" if variant == "backward_wgmma"
+                   else "f32 at hd 16-128, bf16 at hd 16 and 32, under grad"),
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in mine if r["dtype"] == d)
+                                 for d in TOL if any(r["dtype"] == d for r in mine)},
         "tol": {d: {"atol": a, "rtol": r} for d, (a, r) in TOL.items()},
-        "limit_ratio": max(r["limit_ratio"] for r in checks),
-        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in checks
+        "limit_ratio": max(r["limit_ratio"] for r in mine),
+        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in mine
                                      if "fault_limit_ratio" in r),
-        "checked_shapes": sorted({tuple(r["shape"]) for r in checks}),
+        "checked_shapes": sorted({tuple(r["shape"]) for r in mine}),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1352,6 +1418,13 @@ def backward_row(main_row: dict, checks: list, launches: int, path: str) -> dict
         "shape": main_row["shape"],
         "dtype": main_row["dtype"],
     }
+    if variant == "backward_wgmma":
+        row.update({key: main_row[key] for key in (
+            "executed_products", "executed_bound_ms", "executed_bound_share",
+            "cuda_core_kernel_ms",
+            "cuda_core_over_kernel")})
+        row["two_calls_bit_equal"] = all(r["two_calls_bit_equal"] for r in mine)
+    return row
 
 
 def main() -> int:
@@ -1388,7 +1461,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     wkv_launches = phase_rwkv_main_path()
 
-    phase_gradients(cfg)
+    grad_launches = phase_gradients(cfg)
     torch.cuda.empty_cache()
     train = phase_train(cfg)
     torch.cuda.empty_cache()
@@ -1406,9 +1479,12 @@ def main() -> int:
                         "every rwkv6_1b6 decode step (serve.main --production)",
                         at_prefill_ms=wkv_timed["bf16"]["sequential_kernel_ms"],
                         decode_batch4=wkv_timed[("decode", WKV_DECODE[0])])]
-    kernels.append(backward_row(bwd_timed["bf16"], bwd_checks, train["launches"]["backward"],
-                                f"every full-width llama3_8b train step ({TRAIN_LAYERS} "
-                                f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)"))
+    kernels += [backward_row(bwd_timed["bf16"], bwd_checks, "backward_wgmma",
+                             train["launches"]["backward_wgmma"],
+                             f"every full-width llama3_8b train step ({TRAIN_LAYERS} "
+                             f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)"),
+                backward_row(bwd_timed["f32"], bwd_checks, "backward", grad_launches,
+                             "the 4-layer f32 loss gradient of phase 9")]
     emit("done", seconds=time.perf_counter() - t_start, gc_collections=len(GC_PAUSES),
          gc_full_collections=sum(g == 2 for g, _ in GC_PAUSES),
          gc_seconds=sum(p for _, p in GC_PAUSES),

@@ -19,9 +19,16 @@
 // Both forward kernels take an optional f32 lse [BHq, S] output: the
 // natural-log sum of exp(scores * hd^-0.5) of each row, the one number per
 // row that the backward needs to recompute p.  Serving passes null.  The
-// backward (repro_flash_attention_bwd, at the end of this file) has no TPU
-// counterpart: the TPU kernel is forward only and JAX differentiates its
-// jnp model path; it is described where it begins.
+// backward has no TPU counterpart: the TPU kernel is forward only and JAX
+// differentiates its jnp model path.  Two backwards compute its gradient,
+// each described where it begins, and as for the forward the wrapper picks
+// one by dtype and hd:
+//
+// * repro_flash_attention_bwd_wgmma: bf16 at hd 64 and 128 (the calls
+//   whose forward is the tensor-core kernel), on the tensor cores with
+//   TMA.  Every llama3_8b training layer runs it.
+// * repro_flash_attention_bwd: f32 and bf16 at hd 16-128, f32 arithmetic
+//   on the CUDA cores.  It serves f32 calls and bf16 at hd 16 and 32.
 //
 // Bound at the main-path shape (one llama3_8b prefill layer: B=1, S=4096,
 // Hq=32, Hkv=8, hd=128, causal, bf16): the unmasked half of the score
@@ -380,9 +387,9 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
 }
 
 // MN-major (V as B of P.V): 8-key groups 1024 bytes apart; 64-column panels
-// of hd a whole tile apart.
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return smem_desc(addr, kTcBN * kRowBytes, 8 * kRowBytes);
+// of hd a whole tile of `rows` rows apart.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, int rows = kTcBN) {
+  return smem_desc(addr, rows * kRowBytes, 8 * kRowBytes);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -393,6 +400,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// until at most N committed groups are in flight (they complete in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from touching accumulators across an asynchronous wgmma.
@@ -423,6 +435,17 @@ __device__ __forceinline__ void wgmma_scores(float (&d)[64], uint64_t a, uint64_
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_D64
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : FA_F32(d, 0), FA_F32(d, 32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= a[64 x 16] . b[64 x 16]^T, a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_F32(d, 0)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -786,7 +809,7 @@ extern "C" int repro_flash_attention_wgmma_smem_bytes(int hd) {
 //   tensor-core peak, 5.1 ms at the f32 CUDA-core peak; bound by
 //   operations.  This kernel runs eight products' worth (the recomputed
 //   scores and dP in both steps, and the two dQ accumulators) on the CUDA
-//   cores; the tensor cores are later work.
+//   cores; bf16 at hd 64 and 128 goes to the tensor-core backward below.
 namespace {
 
 constexpr int kBT = 64;        // q rows and keys per tile of the backward
@@ -1128,6 +1151,600 @@ extern "C" int repro_flash_attention_bwd_smem_bytes(int hd) {
     case 32: return static_cast<int>(BwdLayout<32>::kBytes);
     case 64: return static_cast<int>(BwdLayout<64>::kBytes);
     case 128: return static_cast<int>(BwdLayout<128>::kBytes);
+    default: return 0;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The tensor-core backward (bf16, hd 64 and 128).
+//
+// The same function as the CUDA-core backward above, for the calls whose
+// forward is the tensor-core kernel: bf16 q, k, v, dO at hd 64 and 128.
+// Bound at the training shape (B=1, S=4096, 32/8 heads, hd 128, causal):
+// five products over the unmasked half of the score matrix, 343.6 GFLOP,
+// 0.347 ms at the bf16 tensor-core peak (989 TFLOP/s, H100 SXM, 700 W);
+// q/k/v/dO/dq/dk/dv are 92 MB, 0.027 ms at 3.35 TB/s.  Bound by
+// operations, on the tensor cores.  Two kernels on one stream, no atomics:
+// two identical calls give identical bits.
+//
+// * Numerics.  Every product is a wgmma with bf16 operands and f32
+//   accumulators, so the products of bf16 inputs are exact.  p and dS are
+//   f32; as the forward's P.V, each f32 A operand is split into
+//   hi = bf16(x) and lo = bf16(x - hi), two wgmmas, which leaves 2^-17 of
+//   x.  One rounding of p or dS instead misses the one-ulp limit by more
+//   than 10x (tests/test_torch_flash_bwd_numerics.py).  p = exp2(S scale log2(e) -
+//   lse log2(e)), the forward's natural-log lse taken to log2 units.
+//   D = rowsum(p * dP) is summed in f32, never from the rounded O.  Each
+//   gradient is rounded once to bf16.
+// * Promotion.  The tensor cores add into their f32 accumulators with
+//   truncation, and the error of each addition scales with the running
+//   sum.  Under a causal mask with GQA 4:1 at S=4096, the first keys' dK
+//   and dV sum 2048 wgmma steps whose first terms are the largest, and
+//   where the sum cancels to a small value a kernel that kept one
+//   accumulator missed the one-ulp limit several times over, while
+//   autograd's f32 sum stayed within it.  So after
+//   every tile each thread adds its accumulator fragment into an f32
+//   master in shared memory with round-to-nearest adds and restarts the
+//   fragment from zero: a fragment sums 8 wgmma steps.  The outputs come
+//   from the masters.  Promoting every tile also compiled without spills
+//   and ran faster on the card than promoting every 2 or 4 tiles.
+// * flash_bwd_dq_wgmma_kernel: one block per (q head, 128 q rows),
+//   heaviest first; the forward's layout: 288 threads, two consumer
+//   warpgroups of 64 rows and a producer warp whose first lane issues
+//   every TMA load; q and dO loaded once, 64-key K/V tiles through a
+//   three-stage mbarrier ring.  D takes two sweeps over the keys: the
+//   first computes S = q.K^T and dP = dO.V^T (one wgmma m64n64k16 each
+//   per 16 of hd) and sums D; the second computes them again, forms
+//   dS = p (dP - D) in registers and adds dS.K to one accumulator, K read
+//   MN-major from the same tile.  The other way, dQ = scale (sum p dP K -
+//   D sum p K) in one sweep as the CUDA-core kernel does, needs two
+//   hd-wide accumulators beside S and dP, more registers than a thread
+//   has, and it cancels in the difference; two sweeps run the same six
+//   bf16 products per tile (S, dP twice; dS.K as hi and lo).  The block
+//   writes each row's {lse log2(e), D} to `rowstat` for the second kernel.
+// * flash_bwd_dkdv_wgmma_kernel: one block per (kv head, key tile), keys
+//   first to last, so that under a causal mask the heaviest blocks start
+//   first.  K and V are loaded once; 64-row q and dO tiles of every query
+//   head of the GQA group stream through a three-stage ring (from the
+//   diagonal on when causal), so the group's sum stays in the block.
+//   S^T = K.q^T and dP^T = V.dO^T put the keys on wgmma's M, so P^T and
+//   dS^T come out in the registers of the next products' A operand;
+//   dV += P^T.dO and dK += dS^T.q read dO and q MN-major.  lse and D of
+//   the tile's 64 rows are read from `rowstat`.  Each consumer warpgroup
+//   sums 64 keys x 64 columns of dK and dV: at hd 64 a block has 128 keys
+//   and each warpgroup its own 64; at hd 128 a block has 64 keys, both
+//   warpgroups compute their S^T and dP^T, and each sums one half of hd.
+// * Registers.  ptxas gives the 288 threads 168 registers each (it sizes
+//   the block as three warpgroups).  A 384-thread block whose consumers
+//   asked setmaxnreg for 240 still spilled: ptxas's allocator kept them
+//   near 168.  So the tiles are cut to fit: a consumer holds at most
+//   64 f32 accumulators (dQ at hd 128, or dK and dV) beside 64 of S and
+//   dP.  Executed work per pair of q row and key: 12 bf16 products at hd
+//   64, 14 at hd 128 (S^T and dP^T twice), against the bound's 5.
+// * Shared memory at hd 128: dQ 225 KB (q, dO, three stages of K and V,
+//   the 64 KB master); dK/dV 193 KB (K, V, three stages of q and dO, the
+//   two 32 KB masters): one block an SM.
+namespace {
+
+constexpr int kDqBN = 64;                  // keys per K/V tile of the dQ kernel
+constexpr int kDqStages = 3;               // its K/V ring
+constexpr int kDkvBQ = 64;                 // q rows per step of the dK/dV kernel
+constexpr int kDkvStages = 3;              // its q/dO ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct DqSmem {                            // byte offsets from a 1024-aligned base
+  static constexpr int kQBytes = kTcBM * HD * 2;         // the q tile, then the dO tile
+  static constexpr int kDo = kQBytes;
+  static constexpr int kTileBytes = kDqBN * HD * 2;      // one K or one V tile
+  static constexpr int kK = 2 * kQBytes;                 // K of stage s at kK + s * kTileBytes
+  static constexpr int kV = kK + kDqStages * kTileBytes;
+  static constexpr int kMaster = kV + kDqStages * kTileBytes;   // f32 dQ, HD / 2 a thread
+  static constexpr int kBar = kMaster + HD / 2 * 4 * kTcConsumers;
+  // barriers: q and dO full, K full [stages], V full [stages], empty [stages]
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kDqStages);
+  static constexpr size_t kAlloc = kBytes + 1024;
+};
+
+template <int HD>
+struct DkvSmem {
+  static constexpr int kKeys = HD == 128 ? 64 : 128;     // keys of a block
+  static constexpr int kKvBytes = kKeys * HD * 2;        // its K tile, then its V tile
+  static constexpr int kV = kKvBytes;
+  static constexpr int kStepBytes = kDkvBQ * HD * 2;     // one q or one dO tile
+  static constexpr int kQ = 2 * kKvBytes;                // q of stage s at kQ + s * kStepBytes
+  static constexpr int kDo = kQ + kDkvStages * kStepBytes;
+  static constexpr int kMaster = kDo + kDkvStages * kStepBytes;   // f32 dK, then f32 dV
+  static constexpr int kMasterBytes = 32 * 4 * kTcConsumers;     // 32 floats a thread
+  static constexpr int kBar = kMaster + 2 * kMasterBytes;
+  // barriers: K and V full, q full [stages], dO full [stages], empty [stages]
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kDkvStages);
+  static constexpr size_t kAlloc = kBytes + 1024;
+};
+
+// Rows of `rowstat`: the dQ kernel writes every row of its 128-row tiles.
+__host__ __device__ constexpr int rowstat_rows(int seq) { return (seq + kTcBM - 1) / kTcBM * kTcBM; }
+
+// acc into the f32 master (first: the master starts at acc), acc to zero.
+// The master holds a float4 per four registers, thread-minor, so a warp's
+// accesses fall in distinct banks.
+template <int N>
+__device__ __forceinline__ void promote(float (&acc)[N], float4* master, bool first) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    float4 m = first ? make_float4(0.f, 0.f, 0.f, 0.f) : master[i * kTcConsumers + threadIdx.x];
+    m.x += acc[4 * i];
+    m.y += acc[4 * i + 1];
+    m.z += acc[4 * i + 2];
+    m.w += acc[4 * i + 3];
+    master[i * kTcConsumers + threadIdx.x] = m;
+    acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.f;
+  }
+}
+
+// Element 4 i + e of this thread's fragment, from the master.
+__device__ __forceinline__ float mastered(const float4* master, int i4, int e) {
+  const float4 m = master[i4 * kTcConsumers + threadIdx.x];
+  return e == 0 ? m.x : e == 1 ? m.y : e == 2 ? m.z : m.w;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse, float2* __restrict__ rowstat,
+                          __nv_bfloat16* __restrict__ dq, int seq, int group, float scale,
+                          int causal) {
+  using L = DqSmem<HD>;
+  constexpr int kPanels = HD / kPanelCols;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  float4* master = reinterpret_cast<float4*>(smem_raw + (base - smem_addr(smem_raw)) + L::kMaster);
+  const uint32_t qd_full = base + L::kBar;
+  const uint32_t k_full = qd_full + 8;                 // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kDqStages;
+  const uint32_t empty = v_full + 8 * kDqStages;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBM;
+  int n_kv = (seq + kDqBN - 1) / kDqBN;
+  if (causal) n_kv = min(n_kv, (q0 + kTcBM - 1) / kDqBN + 1);
+
+  if (tid == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kTcConsumers) {
+    // producer warp: one lane issues every load of the block
+    if (tid == kTcConsumers) {
+      const int kvh = bh / group;
+      mbar_expect_tx(qd_full, 2 * L::kQBytes);
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(base + p * kTcBM * kRowBytes, &tm_q, qd_full, p * kPanelCols, q0, bh);
+        tma_load(base + L::kDo + p * kTcBM * kRowBytes, &tm_do, qd_full, p * kPanelCols, q0, bh);
+      }
+      // two sweeps over the key tiles: D, then dQ
+      for (int j = 0; j < 2 * n_kv; ++j) {
+        const int s = j % kDqStages;
+        const int k0 = (j % n_kv) * kDqBN;
+        mbar_wait(empty + 8 * s, ((j / kDqStages) & 1) ^ 1);   // the first round passes
+        const uint32_t kd = base + L::kK + s * L::kTileBytes;
+        const uint32_t vd = base + L::kV + s * L::kTileBytes;
+        mbar_expect_tx(k_full + 8 * s, L::kTileBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(kd + p * kDqBN * kRowBytes, &tm_k, k_full + 8 * s, p * kPanelCols, k0, kvh);
+        mbar_expect_tx(v_full + 8 * s, L::kTileBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(vd + p * kDqBN * kRowBytes, &tm_v, v_full + 8 * s, p * kPanelCols, k0, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns rows q0 + 64 wg .. + 63; this thread holds
+  // rows r and r + 8 at columns 8 c + col + {0, 1} of every 8-column chunk c
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int row_a = q0 + wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  const int row_b = row_a + 8;
+  const int col = 2 * (lane % 4);
+  const uint32_t q_tile = base + wg * 64 * kRowBytes;
+  const uint32_t do_tile = base + L::kDo + wg * 64 * kRowBytes;
+  const float scale_log2 = scale * kLog2e;
+  // lse in log2 units; rows past seq are never stored, any value will do
+  const float* lp = lse + static_cast<size_t>(bh) * seq;
+  const float lse_a = row_a < seq ? lp[row_a] * kLog2e : 0.f;
+  const float lse_b = row_b < seq ? lp[row_b] * kLog2e : 0.f;
+
+  float acc[HD / 2];                       // the latest tile's dS K
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float s[kDqBN / 2], dp[kDqBN / 2];       // S, then p; dP
+
+  // S and dP of the key tile in ring slot j (both sweeps walk the same
+  // tiles), then p = exp2(S scale log2(e) - lse log2(e)) in place of S,
+  // 0 past seq and above the diagonal
+  const auto tile = [&](int j) {
+    const int st = j % kDqStages;
+    const uint32_t parity = (j / kDqStages) & 1;
+    const int k0 = (j % n_kv) * kDqBN;
+    const uint32_t k_tile = base + L::kK + st * L::kTileBytes;
+    const uint32_t v_tile = base + L::kV + st * L::kTileBytes;
+    mbar_wait(k_full + 8 * st, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t koff = (kk % 4) * 32;   // 16 columns into panel kk / 4
+      wgmma_scores(s, desc_k_major(q_tile + (kk / 4) * kTcBM * kRowBytes + koff),
+                   desc_k_major(k_tile + (kk / 4) * kDqBN * kRowBytes + koff), kk > 0);
+    }
+    wgmma_commit();
+    mbar_wait(v_full + 8 * st, parity);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t koff = (kk % 4) * 32;
+      wgmma_scores(dp, desc_k_major(do_tile + (kk / 4) * kTcBM * kRowBytes + koff),
+                   desc_k_major(v_tile + (kk / 4) * kDqBN * kRowBytes + koff), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                       // S has landed; dP is still running
+    fence_regs(s);
+    const bool edge = k0 + kDqBN > seq || (causal && k0 + kDqBN - 1 > q0 + wg * 64);
+#pragma unroll
+    for (int i = 0; i < kDqBN / 2; ++i) {
+      const float p = exp2f(fmaf(s[i], scale_log2, (i & 2) ? -lse_b : -lse_a));
+      const int c = k0 + 8 * (i / 4) + col + (i & 1);
+      const int r = (i & 2) ? row_b : row_a;
+      s[i] = edge && (c >= seq || (causal && c > r)) ? 0.f : p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+  };
+
+  mbar_wait(qd_full, 0);
+  float d_a = 0.f, d_b = 0.f;              // sweep 1: this thread's share of D
+  for (int j = 0; j < n_kv; ++j) {
+    tile(j);
+#pragma unroll
+    for (int i = 0; i < kDqBN / 2; ++i) {
+      if (i & 2) d_b = fmaf(s[i], dp[i], d_b);
+      else d_a = fmaf(s[i], dp[i], d_a);
+    }
+    mbar_arrive(empty + 8 * (j % kDqStages));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {  // D: the quad's shares summed
+    d_a += __shfl_xor_sync(0xffffffffu, d_a, off);
+    d_b += __shfl_xor_sync(0xffffffffu, d_b, off);
+  }
+  if (col == 0) {                          // every row of the tile, past seq too
+    float2* rs = rowstat + static_cast<size_t>(bh) * rowstat_rows(seq);
+    rs[row_a] = make_float2(lse_a, d_a);
+    rs[row_b] = make_float2(lse_b, d_b);
+  }
+
+  for (int j = n_kv; j < 2 * n_kv; ++j) {  // sweep 2: dQ
+    tile(j);
+    // dS = p (dP - D) as hi + lo bf16 pairs in the A-operand order of dS.K
+    uint32_t hi[kDqBN / 4], lo[kDqBN / 4];
+#pragma unroll
+    for (int i = 0; i < kDqBN / 4; ++i) {
+      const float d = (i & 1) ? d_b : d_a;
+      split_bf16(s[2 * i] * (dp[2 * i] - d), s[2 * i + 1] * (dp[2 * i + 1] - d), hi[i], lo[i]);
+    }
+    const uint32_t k_tile = base + L::kK + (j % kDqStages) * L::kTileBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqBN / 16; ++kk)
+      wgmma_pv(acc, hi + 4 * kk, desc_mn_major(k_tile + kk * 16 * kRowBytes, kDqBN));
+#pragma unroll
+    for (int kk = 0; kk < kDqBN / 16; ++kk)
+      wgmma_pv(acc, lo + 4 * kk, desc_mn_major(k_tile + kk * 16 * kRowBytes, kDqBN));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * (j % kDqStages));
+    promote(acc, master, j == n_kv);
+  }
+
+  __nv_bfloat16* dqp = dq + static_cast<size_t>(bh) * seq * HD;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const int d = 8 * c + col;
+    if (row_a < seq)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + static_cast<size_t>(row_a) * HD + d) =
+          __floats2bfloat162_rn(scale * mastered(master, c, 0), scale * mastered(master, c, 1));
+    if (row_b < seq)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + static_cast<size_t>(row_b) * HD + d) =
+          __floats2bfloat162_rn(scale * mastered(master, c, 2), scale * mastered(master, c, 3));
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const float2* __restrict__ rowstat, __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int seq, int group, float scale,
+                            int causal) {
+  using L = DkvSmem<HD>;
+  constexpr int kPanels = HD / kPanelCols;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  float4* master_dk =
+      reinterpret_cast<float4*>(smem_raw + (base - smem_addr(smem_raw)) + L::kMaster);
+  float4* master_dv = master_dk + L::kMasterBytes / 16;
+  const uint32_t kv_full = base + L::kBar;
+  const uint32_t q_full = kv_full + 8;                 // + 8 * stage
+  const uint32_t do_full = q_full + 8 * kDkvStages;
+  const uint32_t empty = do_full + 8 * kDkvStages;
+
+  const int tid = threadIdx.x;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * L::kKeys;    // key tile 0 has the most q tiles under a causal mask
+  const int n_q = (seq + kDkvBQ - 1) / kDkvBQ;
+  const int first = causal ? k0 / kDkvBQ : 0;   // earlier q rows see none of these keys
+  const int per_head = n_q - first;
+  const int steps = group * per_head;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(do_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kTcConsumers) {
+    if (tid == kTcConsumers) {
+      mbar_expect_tx(kv_full, 2 * L::kKvBytes);
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(base + p * L::kKeys * kRowBytes, &tm_k, kv_full, p * kPanelCols, k0, bkv);
+        tma_load(base + L::kV + p * L::kKeys * kRowBytes, &tm_v, kv_full, p * kPanelCols, k0,
+                 bkv);
+      }
+      // every q tile of every query head of the group, head by head
+      for (int j = 0; j < steps; ++j) {
+        const int s = j % kDkvStages;
+        const int bh = bkv * group + j / per_head;
+        const int q0 = (first + j % per_head) * kDkvBQ;
+        mbar_wait(empty + 8 * s, ((j / kDkvStages) & 1) ^ 1);
+        const uint32_t qd = base + L::kQ + s * L::kStepBytes;
+        const uint32_t dd = base + L::kDo + s * L::kStepBytes;
+        mbar_expect_tx(q_full + 8 * s, L::kStepBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(qd + p * kDkvBQ * kRowBytes, &tm_q, q_full + 8 * s, p * kPanelCols, q0, bh);
+        mbar_expect_tx(do_full + 8 * s, L::kStepBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(dd + p * kDkvBQ * kRowBytes, &tm_do, do_full + 8 * s, p * kPanelCols, q0, bh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg sums keys key0 .. + 63 at hd columns col0 .. + 63;
+  // this thread holds keys key_a and key_a + 8 at q rows 8 c + col + {0, 1}
+  // of every chunk c of S^T, and at columns col0 + 8 c + col + {0, 1} of dK
+  // and dV
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int key0 = k0 + (HD == 128 ? 0 : 64 * wg);
+  const int col0 = HD == 128 ? 64 * wg : 0;
+  const int key_a = key0 + (tid % 128) / 32 * 16 + lane / 4;
+  const int key_b = key_a + 8;
+  const int col = 2 * (lane % 4);
+  const uint32_t k_rows = base + (key0 - k0) * kRowBytes;
+  const uint32_t v_rows = base + L::kV + (key0 - k0) * kRowBytes;
+  const uint32_t panel = (col0 / kPanelCols) * kDkvBQ * kRowBytes;   // col0's panel of q and dO
+  const float scale_log2 = scale * kLog2e;
+  const int stat_rows = rowstat_rows(seq);
+
+  float acc_dk[32], acc_dv[32];            // the latest step's sums
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  float s[kDkvBQ / 2], dp[kDkvBQ / 2];     // S^T, then P^T; dP^T
+
+  mbar_wait(kv_full, 0);
+  for (int j = 0; j < steps; ++j) {
+    const int st = j % kDkvStages;
+    const uint32_t parity = (j / kDkvStages) & 1;
+    const int bh = bkv * group + j / per_head;
+    const int q0 = (first + j % per_head) * kDkvBQ;
+    const uint32_t q_tile = base + L::kQ + st * L::kStepBytes;
+    const uint32_t do_tile = base + L::kDo + st * L::kStepBytes;
+
+    mbar_wait(q_full + 8 * st, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t koff = (kk % 4) * 32;
+      wgmma_scores(s, desc_k_major(k_rows + (kk / 4) * L::kKeys * kRowBytes + koff),
+                   desc_k_major(q_tile + (kk / 4) * kDkvBQ * kRowBytes + koff), kk > 0);
+    }
+    wgmma_commit();
+    mbar_wait(do_full + 8 * st, parity);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t koff = (kk % 4) * 32;
+      wgmma_scores(dp, desc_k_major(v_rows + (kk / 4) * L::kKeys * kRowBytes + koff),
+                   desc_k_major(do_tile + (kk / 4) * kDkvBQ * kRowBytes + koff), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp2(S^T scale log2(e) - lse[q] log2(e)) and dS^T = P^T (dP^T -
+    // D[q]), 0 past seq and above the diagonal; both as hi + lo bf16 pairs
+    const bool edge = q0 + kDkvBQ > seq || (causal && q0 < key0 + 63);
+    // {lse log2(e), D} of q rows 8 c + col and + 1: one 16-byte load a chunk
+    const float2* stat = rowstat + static_cast<size_t>(bh) * stat_rows + q0 + col;
+    uint32_t p_hi[kDkvBQ / 4], p_lo[kDkvBQ / 4], ds_hi[kDkvBQ / 4], ds_lo[kDkvBQ / 4];
+#pragma unroll
+    for (int c = 0; c < kDkvBQ / 8; ++c) {
+      const float4 rs = __ldg(reinterpret_cast<const float4*>(stat + 8 * c));
+      const int qr = q0 + 8 * c + col;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {        // pair 2 c + h: key_a, then key_b
+        const int i = 4 * c + 2 * h;
+        const int key = h ? key_b : key_a;
+        float p0 = exp2f(fmaf(s[i], scale_log2, -rs.x));
+        float p1 = exp2f(fmaf(s[i + 1], scale_log2, -rs.z));
+        if (edge) {
+          if (qr >= seq || (causal && qr < key)) p0 = 0.f;
+          if (qr + 1 >= seq || (causal && qr + 1 < key)) p1 = 0.f;
+        }
+        split_bf16(p0, p1, p_hi[2 * c + h], p_lo[2 * c + h]);
+        split_bf16(p0 * (dp[i] - rs.y), p1 * (dp[i + 1] - rs.w), ds_hi[2 * c + h],
+                   ds_lo[2 * c + h]);
+      }
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDkvBQ / 16; ++kk)
+      wgmma_pv(acc_dv, p_hi + 4 * kk, desc_mn_major(do_tile + panel + kk * 16 * kRowBytes, kDkvBQ));
+#pragma unroll
+    for (int kk = 0; kk < kDkvBQ / 16; ++kk)
+      wgmma_pv(acc_dv, p_lo + 4 * kk, desc_mn_major(do_tile + panel + kk * 16 * kRowBytes, kDkvBQ));
+#pragma unroll
+    for (int kk = 0; kk < kDkvBQ / 16; ++kk)
+      wgmma_pv(acc_dk, ds_hi + 4 * kk, desc_mn_major(q_tile + panel + kk * 16 * kRowBytes, kDkvBQ));
+#pragma unroll
+    for (int kk = 0; kk < kDkvBQ / 16; ++kk)
+      wgmma_pv(acc_dk, ds_lo + 4 * kk, desc_mn_major(q_tile + panel + kk * 16 * kRowBytes, kDkvBQ));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    mbar_arrive(empty + 8 * st);
+    promote(acc_dk, master_dk, j == 0);
+    promote(acc_dv, master_dv, j == 0);
+  }
+
+  const size_t head = static_cast<size_t>(bkv) * seq * HD;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int d = col0 + 8 * c + col;
+    if (key_a < seq) {
+      const size_t at = head + static_cast<size_t>(key_a) * HD + d;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+          scale * mastered(master_dk, c, 0), scale * mastered(master_dk, c, 1));
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(mastered(master_dv, c, 0), mastered(master_dv, c, 1));
+    }
+    if (key_b < seq) {
+      const size_t at = head + static_cast<size_t>(key_b) * HD + d;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+          scale * mastered(master_dk, c, 2), scale * mastered(master_dk, c, 3));
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(mastered(master_dv, c, 2), mastered(master_dv, c, 3));
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int HD>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, float2* rowstat, void* dq, void* dk, void* dv,
+                             int bh, int bh_kv, int seq, float scale, int causal,
+                             cudaStream_t stream) {
+  using Lq = DqSmem<HD>;
+  using Lkv = DkvSmem<HD>;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // q and dO in 128-row boxes for the dQ kernel and 64-row boxes for the
+  // dK/dV kernel; K and V in the boxes of each kernel's key tile
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_q64, tm_do64, tm_kb, tm_vb;
+  if (!tensor_map(encode, &tm_q, q, bh, seq, HD, kTcBM) ||
+      !tensor_map(encode, &tm_do, dout, bh, seq, HD, kTcBM) ||
+      !tensor_map(encode, &tm_k, k, bh_kv, seq, HD, kDqBN) ||
+      !tensor_map(encode, &tm_v, v, bh_kv, seq, HD, kDqBN) ||
+      !tensor_map(encode, &tm_q64, q, bh, seq, HD, kDkvBQ) ||
+      !tensor_map(encode, &tm_do64, dout, bh, seq, HD, kDkvBQ) ||
+      !tensor_map(encode, &tm_kb, k, bh_kv, seq, HD, Lkv::kKeys) ||
+      !tensor_map(encode, &tm_vb, v, bh_kv, seq, HD, Lkv::kKeys))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<HD>, Lq::kAlloc);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_dkdv_wgmma_kernel<HD>, Lkv::kAlloc);
+  if (err != cudaSuccess) return err;
+  const int group = bh / bh_kv;
+  flash_bwd_dq_wgmma_kernel<HD><<<dim3(bh, (seq + kTcBM - 1) / kTcBM), kTcThreads, Lq::kAlloc,
+                                  stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, rowstat, static_cast<__nv_bfloat16*>(dq), seq, group, scale,
+      causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // same stream: the dK/dV kernel reads the rowstat that the dQ kernel wrote
+  flash_bwd_dkdv_wgmma_kernel<HD><<<dim3(bh_kv, (seq + Lkv::kKeys - 1) / Lkv::kKeys),
+                                    kTcThreads, Lkv::kAlloc, stream>>>(
+      tm_q64, tm_kb, tm_vb, tm_do64, rowstat, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), seq, group, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The tensor-core backward: repro_flash_attention_bwd's arguments, for bf16
+// (is_bf16 = 1) at hd 64 or 128 with 16-byte-aligned q, k, v and dout, and
+// nothing else.  The scratch is f32 [bh, round_up(seq, 128), 2] (`rowstat`:
+// each row's lse in log2 units and D), written by the first kernel and read
+// by the second.
+extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                                               const void* dout, const void* lse,
+                                               void* rowstat, void* dq, void* dk, void* dv,
+                                               int bh, int bh_kv, int seq, int hd, int is_bf16,
+                                               int causal, float scale, void* stream) {
+  if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 ||
+      (seq + kDkvBQ - 1) / kDkvBQ > 65535 || !is_bf16 || lse == nullptr || rowstat == nullptr)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(rowstat)) % 16 != 0)
+    return cudaErrorMisalignedAddress;   // TMA and the rowstat loads need 16-byte alignment
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float2* rs = static_cast<float2*>(rowstat);
+  switch (hd) {
+    case 64:
+      return launch_bwd_wgmma<64>(q, k, v, dout, l, rs, dq, dk, dv, bh, bh_kv, seq, scale,
+                                  causal, s);
+    case 128:
+      return launch_bwd_wgmma<128>(q, k, v, dout, l, rs, dq, dk, dv, bh, bh_kv, seq, scale,
+                                   causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the tensor-core backward's two kernels at `hd`,
+// in bytes: which = 0 the dQ kernel, 1 the dK/dV kernel (0 if hd is not
+// 64 or 128).
+extern "C" int repro_flash_attention_bwd_wgmma_smem_bytes(int hd, int which) {
+  switch (hd) {
+    case 64: return static_cast<int>(which ? DkvSmem<64>::kAlloc : DqSmem<64>::kAlloc);
+    case 128: return static_cast<int>(which ? DkvSmem<128>::kAlloc : DqSmem<128>::kAlloc);
     default: return 0;
   }
 }

@@ -20,10 +20,18 @@ other:
 
 When grad mode is on and q, k or v requires grad, the CUDA call is a
 :class:`torch.autograd.Function`: the forward kernel also writes each
-row's log-sum-exp, and the gradient is the ``"backward"`` kernel (f32 on
-the CUDA cores, every call the forward takes), so attention's gradient
-on the card never silently vanishes.  The TPU kernel has no backward; JAX
-differentiates its jnp model path instead.
+row's log-sum-exp, and the gradient is one of two backward kernels,
+picked by :func:`backward_variant`, so attention's gradient on the card
+never silently vanishes:
+
+* ``"backward_wgmma"``: the calls whose forward is ``"wgmma"``, on the
+  tensor cores with TMA loads (p and dS split into two bf16 halves, D
+  summed from p * dP in f32);
+* ``"backward"``: the rest (f32, and bf16 at hd 16 and 32), f32
+  arithmetic on the CUDA cores.
+
+The TPU kernel has no backward; JAX differentiates its jnp model path
+instead.
 """
 from __future__ import annotations
 
@@ -36,17 +44,20 @@ from ._build import load_library
 from .ref import check_attention_shapes, reference_attention
 
 __all__ = ["flash_attention_bhsd", "flash_attention_bhsd_plain",
-           "flash_attention_bwd", "kernel_variant", "reset_launch_counts",
-           "KERNEL_HEAD_DIMS", "VARIANTS", "WGMMA_HEAD_DIMS"]
+           "flash_attention_bwd", "backward_variant", "kernel_variant",
+           "reset_launch_counts", "KERNEL_HEAD_DIMS", "VARIANTS", "WGMMA_HEAD_DIMS"]
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
-# the two forward kernels and the backward one, each counted on its own
-VARIANTS = ("wgmma", "cuda_core", "backward")
+# the two forward kernels and the two backward ones, each counted on its own
+VARIANTS = ("wgmma", "cuda_core", "backward", "backward_wgmma")
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _ENTRY = {"wgmma": "repro_flash_attention_fwd_wgmma",
           "cuda_core": "repro_flash_attention_fwd",
-          "backward": "repro_flash_attention_bwd"}
+          "backward": "repro_flash_attention_bwd",
+          "backward_wgmma": "repro_flash_attention_bwd_wgmma"}
+# rows of the tensor-core backward's scratch: its dQ kernel's 128-row tiles
+_BWD_WGMMA_ROWS = 128
 # the plain version is the oracle itself: one plain attention in the port
 flash_attention_bhsd_plain = reference_attention
 
@@ -56,13 +67,19 @@ def kernel_variant(dtype: torch.dtype, hd: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "cuda_core"
 
 
+def backward_variant(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernel that serves a CUDA call of this dtype and head
+    dim: the tensor-core one exactly where the forward is ``"wgmma"``."""
+    return "backward_wgmma" if kernel_variant(dtype, hd) == "wgmma" else "backward"
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(variant: str):
     fn = getattr(load_library("flash_attention"), _ENTRY[variant])
     # pointers and the stream as c_void_p: ctypes would otherwise pass
     # Python ints as 32-bit C ints and cut them.  Forward: q, k, v, o, lse;
-    # backward: q, k, v, dO, lse, D (scratch), dq, dk, dv.
-    n_ptr = 9 if variant == "backward" else 5
+    # backward: q, k, v, dO, lse, scratch, dq, dk, dv.
+    n_ptr = 9 if variant.startswith("backward") else 5
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -119,8 +136,10 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal: bool = True):
     """(dq, dk, dv) of :func:`flash_attention_bhsd` at q, k, v for the
     output gradient ``do``, from the forward's ``lse`` (f32 ``[BHq, S]``).
 
-    One launch of the backward kernel; it takes what the forward kernels
-    take (``do`` in q's dtype and shape) and raises on anything else."""
+    One launch of the backward kernel that :func:`backward_variant` picks;
+    it takes what the forward kernels take (``do`` in q's dtype and shape,
+    at a 16-byte-aligned address for the tensor-core one) and raises on
+    anything else."""
     _check_cuda(q, k, v)
     bh, s, hd = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
@@ -130,16 +149,25 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal: bool = True):
             or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous float32 [{bh}, {s}] tensor on q's device")
     do = do.contiguous()
+    variant = backward_variant(q.dtype, hd)
+    if variant == "backward_wgmma":
+        if do.data_ptr() % 16:
+            raise ValueError("the tensor-core backward takes dO at a 16-byte-aligned "
+                             "address (TMA); got a view that starts off that alignment")
+        # each row's {lse in log2 units, D}, written by its first kernel
+        scratch = torch.empty((bh, -(-s // _BWD_WGMMA_ROWS) * _BWD_WGMMA_ROWS, 2),
+                              dtype=torch.float32, device=q.device)
+    else:
+        scratch = torch.empty_like(lse)    # D
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
-    _launch("backward", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+    _launch(variant, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, k.shape[0], s, hd, int(q.dtype == torch.bfloat16), int(causal), hd ** -0.5)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel with its lse saved, and the backward kernel."""
+    """The forward kernel with its lse saved, and a backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -163,8 +191,8 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True) -> torch.Tensor:
     which takes contiguous f32 or bf16 tensors with hd in
     :data:`KERNEL_HEAD_DIMS` (16-byte-aligned ones for the tensor-core
     kernel, whose TMA loads need it); anything else raises.  Under grad
-    mode with an input that requires grad, the result carries the
-    backward kernel as its ``grad_fn``.
+    mode with an input that requires grad, the result carries a backward
+    kernel as its ``grad_fn``.
     """
     check_attention_shapes(q, k, v)
     if {t.device for t in (q, k, v)} == {torch.device("cpu")}:

@@ -2,9 +2,12 @@
 
 The smoke mode (the default, and the only one yet) trains the selected
 arch's reduced config through the fault-tolerant :class:`Trainer`, on
-the card unless ``--device cpu``.  With ``--inject-fault-at`` the run is
-supervised by :func:`run_with_restarts`: the fault is caught, the
-trainer restarts from the latest checkpoint and finishes.  The JAX
+the card unless ``--device cpu``.  As in the JAX launcher, nothing
+supervises the run: with ``--inject-fault-at`` the injected
+:class:`~repro_torch.runtime.SimulatedFault` ends the command, and a
+rerun on the same ``--ckpt-dir`` resumes from the latest checkpoint
+(:func:`~repro_torch.runtime.run_with_restarts` is the supervisor for
+callers that want the restart in-process).  The JAX
 launcher's ``--production`` lowers the full-size train step against the
 production mesh; that dry run arrives with the port's step builders
 (ROADMAP slice 11), and here the flag raises.
@@ -22,7 +25,7 @@ import sys
 import tempfile
 
 from repro_torch.configs import ShapeConfig, get_smoke_config
-from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig, run_with_restarts
+from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
 
 __all__ = ["main"]
 
@@ -55,21 +58,14 @@ def main(argv=None) -> int:
     shape = ShapeConfig("smoke_train", args.seq_len, args.batch, "train")
     injector = None
     if args.inject_fault_at is not None:
-        # one injector across restarts: the fault fires once
         injector = FailureInjector(fail_at_steps=(args.inject_fault_at,))
-
-    def make_trainer():
-        return Trainer(cfg, shape,
-                       TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every,
-                                     ckpt_dir=args.ckpt_dir),
-                       attn_chunk=16, injector=injector, device=args.device)
-
-    hist, restarts = run_with_restarts(
-        make_trainer, lambda t: t.run(),
-        on_restart=lambda n: _log.info("restart %d from the latest checkpoint", n))
-    _log.info("steps: %d  first loss: %.4f  last loss: %.4f  restarts: %d  on %s",
-              len(hist["loss"]), hist["loss"][0], hist["loss"][-1], restarts,
-              args.device)
+    trainer = Trainer(cfg, shape,
+                      TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every,
+                                    ckpt_dir=args.ckpt_dir),
+                      attn_chunk=16, injector=injector, device=args.device)
+    hist = trainer.run()
+    _log.info("steps: %d  first loss: %.4f  last loss: %.4f  on %s",
+              len(hist["loss"]), hist["loss"][0], hist["loss"][-1], args.device)
     return 0
 
 

@@ -32,6 +32,7 @@ __all__ = ["TrainerConfig", "Trainer"]
 class TrainerConfig:
     steps: int = 100
     ckpt_every: int = 25
+    log_every: int = 10      # JAX's field; its loop does not read it either
     ckpt_dir: str = field(default_factory=lambda: os.path.join(
         tempfile.gettempdir(), "repro_torch_ckpt"))
     keep: int = 3

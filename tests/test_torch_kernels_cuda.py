@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels import (flash_attention, flash_attention_bhsd,
                                  flash_attention_bhsd_plain, rwkv_wkv, wkv_bhsd,
                                  wkv_bhsd_plain)
-from repro_torch.kernels.flash_attention import kernel_variant
+from repro_torch.kernels.flash_attention import backward_variant, kernel_variant
 
 # the modules: the package's ``flash_attention`` and ``rwkv_wkv`` are the
 # model-layout functions
@@ -160,8 +160,8 @@ def test_flash_backward_matches_autograd_of_plain(card, b, s, h, hkv, hd, dtype,
     counts = dict(flash_attention_bhsd.variant_launches)
     out, grads = _grads(flash_attention_bhsd, q, k, v, do, causal)
     torch.cuda.synchronize()
-    forward = kernel_variant(tdt, hd)
-    want = {name: n + (name in (forward, "backward")) for name, n in counts.items()}
+    launched = (kernel_variant(tdt, hd), backward_variant(tdt, hd))
+    want = {name: n + (name in launched) for name, n in counts.items()}
     assert flash_attention_bhsd.variant_launches == want
     # the forward under grad (lse written) returns what serving's does
     with torch.no_grad():
@@ -225,6 +225,83 @@ def test_flash_backward_rejects_what_it_does_not_take(card):
         x = torch.randn(4, 8, 96, device=card, requires_grad=True)
         flash_attention_bhsd(x, kv[..., :96].contiguous(), kv[..., :96].contiguous())
     assert flash_attention_bhsd.launches == before
+
+
+# The tensor-core backward: its 128-row dQ tiles and 128-key dK/dV blocks
+# with 64-row q steps, one row, one short of and one past each, ragged S
+# over many tiles, GQA 4:1 at both head dims, and the training shape's
+# heads at S=4096.
+_WGMMA_BWD_SHAPES = [(1, 1, 4, 1, 128), (1, 63, 4, 1, 64), (1, 65, 4, 1, 128),
+                     (1, 127, 4, 1, 64), (1, 129, 4, 1, 128), (2, 300, 8, 2, 64),
+                     (1, 1000, 8, 2, 128), (1, 1000, 16, 4, 64), (1, 4096, 32, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,variant", [
+    ("bf16", 64, "backward_wgmma"), ("bf16", 128, "backward_wgmma"),
+    ("bf16", 16, "backward"), ("bf16", 32, "backward"),
+    ("f32", 64, "backward"), ("f32", 128, "backward")])
+def test_flash_backward_variant_counts(card, dtype, hd, variant):
+    """The tensor-core backward serves exactly the calls whose forward is
+    the tensor-core kernel; each backward raises its own count and the sum."""
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    assert backward_variant(tdt, hd) == variant
+    q = torch.randn(8, 200, hd, device=card).to(tdt).requires_grad_()
+    kv = torch.randn(2, 200, hd, device=card).to(tdt).requires_grad_()
+    out = flash_attention_bhsd(q, kv, kv, causal=True)
+    total = flash_attention_bhsd.launches
+    counts = dict(flash_attention_bhsd.variant_launches)
+    out.backward(torch.randn_like(out))
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches == total + 1
+    want = {name: n + (name == variant) for name, n in counts.items()}
+    assert flash_attention_bhsd.variant_launches == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,hd", _WGMMA_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tensor_core_backward_matches_autograd_of_plain(card, b, s, h, hkv, hd, causal):
+    gen = torch.Generator(device=card).manual_seed(11 * s + hd)
+    q, k, v, do = (torch.randn((b * n, s, hd), generator=gen, device=card).bfloat16()
+                   for n in (h, hkv, hkv, h))
+    before = flash_attention_bhsd.variant_launches["backward_wgmma"]
+    _, grads = _grads(flash_attention_bhsd, q, k, v, do, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.variant_launches["backward_wgmma"] == before + 1
+    _, ref = _grads(flash_attention_bhsd_plain, q, k, v, do, causal)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape, name
+        torch.testing.assert_close(g.float(), r.float(), atol=1e-5, rtol=2.0 ** -7, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tensor_core_backward_is_deterministic(card, hd):
+    """No atomics: two identical calls give identical bits, GQA 4:1."""
+    gen = torch.Generator(device=card).manual_seed(hd)
+    q, k, v, do = (torch.randn((n, 1000, hd), generator=gen, device=card).bfloat16()
+                   for n in (16, 4, 4, 16))
+    _, lse = fa_mod._forward(q, k, v, True, with_lse=True)
+    first = fa_mod.flash_attention_bwd(q, k, v, lse, do, causal=True)
+    second = fa_mod.flash_attention_bwd(q, k, v, lse, do, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b) and bool(a.abs().sum() > 0)
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_backward_rejects_an_unaligned_do(card):
+    """TMA reads dO from a 16-byte-aligned base: a contiguous view one
+    element into its storage is refused, not handed to the other kernel."""
+    q, k, v = (torch.randn((n, 64, 128), device=card).bfloat16() for n in (4, 1, 1))
+    _, lse = fa_mod._forward(q, k, v, True, with_lse=True)
+    flat = torch.zeros(4 * 64 * 128 + 1, device=card, dtype=torch.bfloat16)
+    dom = flat[1:].view(4, 64, 128)
+    assert dom.is_contiguous() and dom.data_ptr() % 16
+    before = dict(flash_attention_bhsd.variant_launches)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa_mod.flash_attention_bwd(q, k, v, lse, dom, causal=True)
+    assert flash_attention_bhsd.variant_launches == before
 
 
 @pytest.mark.cuda

@@ -9,7 +9,7 @@ every parameter to atol 1e-6, rtol 1e-5 (a loss summed in another order
 moves AdamW's normalized update only at f32 rounding).  Every test
 closes or joins the threads it starts.
 """
-import logging
+import dataclasses
 import threading
 
 import jax
@@ -21,6 +21,8 @@ import torch
 from repro.configs.base import ShapeConfig as JaxShapeConfig
 from repro.data import DataConfig as JaxDataConfig
 from repro.data import SyntheticTokens as JaxSyntheticTokens
+from repro.launch import train as jax_train
+from repro.runtime import SimulatedFault as JaxSimulatedFault
 from repro.runtime import StragglerMonitor as JaxStragglerMonitor
 from repro.runtime import Trainer as JaxTrainer
 from repro.runtime import TrainerConfig as JaxTrainerConfig
@@ -170,6 +172,23 @@ class TestTrainer:
             f.unlink()
         assert t.run()["loss"] == first["loss"]
 
+    def test_config_fields_match_jax(self):
+        """TrainerConfig's fields have JAX's names, order and defaults; the
+        checkpoint directory's default path is the one difference (the
+        port's lies under the temp directory)."""
+        ours, ref = TrainerConfig(), JaxTrainerConfig()
+        names = [f.name for f in dataclasses.fields(ref)]
+        assert [f.name for f in dataclasses.fields(ours)] == names
+        for name in names:
+            if name == "ckpt_dir":
+                continue
+            mine, theirs = getattr(ours, name), getattr(ref, name)
+            if dataclasses.is_dataclass(theirs):
+                assert dataclasses.asdict(mine) == dataclasses.asdict(theirs), name
+            else:
+                assert type(mine) is type(theirs) and mine == theirs, name
+        assert TrainerConfig(log_every=5).log_every == JaxTrainerConfig(log_every=5).log_every
+
     def test_three_steps_match_jax(self, tmp_path):
         cfg = get_smoke_config("llama3_8b")
         jt = JaxTrainer(cfg, JaxShapeConfig("tiny_train", 16, 4, "train"),
@@ -221,13 +240,24 @@ class TestStragglers:
 
 
 class TestLauncher:
-    def test_smoke_run_on_the_cpu_with_a_fault(self, tmp_path, caplog):
-        caplog.set_level(logging.INFO, logger=train.__name__)
-        rc = train.main(["--arch", "llama3_8b", "--device", "cpu", "--steps", "4",
-                         "--seq-len", "8", "--batch", "2", "--ckpt-every", "2",
-                         "--ckpt-dir", str(tmp_path), "--inject-fault-at", "3"])
-        assert rc == 0
-        assert "restart 1 from" in caplog.text and "restarts: 1" in caplog.text
+    def test_smoke_run_on_the_cpu_with_a_fault(self, tmp_path):
+        """As JAX's launcher: nothing supervises the run, so the injected
+        fault ends it with the raised SimulatedFault, after both wrote the
+        step-1 checkpoint."""
+        args = ["--arch", "llama3_8b", "--steps", "4", "--seq-len", "8", "--batch", "2",
+                "--ckpt-every", "2", "--inject-fault-at", "3"]
+        before = set(threading.enumerate())
+        with pytest.raises(JaxSimulatedFault) as ref:
+            jax_train.main([*args, "--ckpt-dir", str(tmp_path / "jax")])
+        with pytest.raises(SimulatedFault) as ours:
+            train.main([*args, "--device", "cpu", "--ckpt-dir", str(tmp_path / "torch")])
+        # JAX's run leaves its async checkpoint writer to finish on a fault
+        for t in set(threading.enumerate()) - before:
+            t.join(timeout=60)
+        assert type(ours.value).__name__ == type(ref.value).__name__ == "SimulatedFault"
+        assert str(ours.value) == str(ref.value) == "injected fault at step 3"
+        kept = [sorted(q.name for q in (tmp_path / d).iterdir()) for d in ("jax", "torch")]
+        assert kept[0] == kept[1] == ["ckpt_000000001.msgpack"]
 
     def test_production_waits_for_the_dry_run_slice(self):
         with pytest.raises(NotImplementedError, match="slice 11"):
