@@ -14,7 +14,9 @@ a non-zero exit if it fails:
                instantiation of the tensor-core flash forward and of both
                kernels of the tensor-core flash backward, and HMMA
                (mma.sync) and LDGSTS (cp.async) in every instantiation of
-               the chunked WKV kernel
+               the chunked WKV kernel; every library must export the entry
+               points ``_build.ENTRY_POINTS`` names (the WKV backward's
+               ``repro_wkv_bwd`` among them)
 2. kernel      ``flash_attention_bhsd`` vs its plain version on the card, f32
                and bf16, causal both ways, at the test shapes, a ragged S=1000
                and every shape the later phases give it, each row naming the
@@ -45,7 +47,10 @@ a non-zero exit if it fails:
                ``decode_attention``
 6. serve       ``ServeLoop(slots=4, max_len=256)`` answering 8 requests on
                full llama3_8b; a torch.profiler window over one prefill
-               call and one decode step; then ``serve.main(["--production",
+               call and one decode step; full llama3_8b decode over 64
+               steps through the int8 KV cache and the bf16 one (kv_int8:
+               within 5 % of the bf16 logits, the cache int8, bytes and
+               step times of both); then ``serve.main(["--production",
                ...])`` end to end — llama's main path, whose flash launches
                are counted
 7. rwkv        full rwkv6_1b6 (24 layers, bf16, seeded random weights):
@@ -69,9 +74,23 @@ a non-zero exit if it fails:
                plain version and SDPA's backward (the yardstick only),
                the five-product bound and the bound of the products the
                tensor-core kernel runs (``WGMMA_BWD_PRODUCTS``)
+8b. wkv_backward  the WKV backward kernel (through ``wkv_bhsd``'s
+               autograd Function) vs autograd of the plain version: dr, dk,
+               dv, dw, du and ds0, f32 and bf16 r/k/v with f32 w, two laws
+               of w, nonzero s0 and dsT, at the test shapes, a ragged
+               S=1000, the training shape and what phases 9b and 11 give
+               it (model layout); each row names the forward kernel that
+               served it; at S >= 256 a planted fault (one dout step
+               dropped in the plain run); every call run twice for
+               identical bits; times at the training shape (the kernel,
+               the forward kernel of the same call, the backward of
+               autograd of the plain version) and the bound
 9. gradients   full width, 4 layers, f32 (TF32 off): ``LM.loss`` and every
                gradient leaf through the kernels vs the same with
                ``gqa_attention`` routed to the chunked torch scan
+9b. rwkv_gradients  the same for rwkv6_1b6 (4 layers, f32): through the
+               sequential WKV kernel and the backward kernel vs the WKV
+               routed to the model's chunked torch form
 10. train      ``llama3_8b`` at full width, 8 layers, bf16 params, f32
                AdamW state, B=1 x S=4096: ``Trainer.step_fn`` on one
                repeated ``SyntheticTokens`` batch; train tokens/s, the
@@ -82,10 +101,18 @@ a non-zero exit if it fails:
                one ``remat="full"`` step, then the falling loss from fresh
                weights — the training main path, whose backward launches
                are counted
+10b. rwkv_train  rwkv6_1b6 at full width and full depth (24 layers, 1.84 B
+               parameters), the same step, timing, profile (with the WKV
+               kernels' own device time), ``remat="full"`` step and
+               falling-loss check as phase 10: 24 chunked forward and 24
+               backward WKV launches a step, no flash launch
 11. trainer    the smoke ``llama3_8b`` ``Trainer.run`` with async
                checkpoints, then a ``FailureInjector`` fault under
                ``run_with_restarts``: it resumes from the last checkpoint,
-               and its losses equal the unfaulted run's bit for bit
+               and its losses equal the unfaulted run's bit for bit; then
+               ``launch.train.main(["--arch", "rwkv6_1b6", ...])`` on the
+               card (smoke config, f32: the sequential WKV kernel and the
+               backward kernel)
 12. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel, and the final ``{"ok": true, "device": ...}``.
 
@@ -103,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
@@ -116,8 +144,10 @@ from repro_torch.configs import ShapeConfig, get_config, get_smoke_config  # noq
 from repro_torch.convert import tree_leaves  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
+from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.rwkv import wkv_chunked  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
@@ -128,7 +158,7 @@ from repro_torch.runtime import (FailureInjector, Request, ServeLoop, Trainer,  
 # layout wrappers
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 wkv = importlib.import_module("repro_torch.kernels.rwkv_wkv")
-KERNEL_SOURCES = ("flash_attention", "rwkv_wkv")
+KERNEL_SOURCES = _build.SOURCES
 SEED = 0
 # H100 SXM data sheet, dense: bf16 tensor cores, f32 on the CUDA cores, HBM3
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -215,6 +245,29 @@ WKV_SHAPES = [(1, 16, 1, 8), (2, 32, 2, 16), (1, 64, 4, 64), (2, 24, 2, 32),
 WKV_TOL = {"f32": (2e-4, 1e-5), "bf16": (2e-4, 2.0 ** -7)}
 WKV_STATE_TOL = (1e-5, 1e-5)
 WKV_DECODE = (4, 1, 32, 64)         # one decode step of batch 4
+
+# The WKV backward's shapes (b, s, h, hd, model layout): the JAX kernel
+# tests' and a ragged S at the rwkv6_1b6 heads, contiguous; then the
+# training shape and what phases 9b and 11 give it, in model layout
+WKV_TRAIN = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 32, 64)    # one rwkv6_1b6 layer of phase 10b
+RWKV_TRAIN_MAIN = ("--arch", "rwkv6_1b6")               # launch.train.main in phase 11
+WKV_BWD_SHAPES = [(1, 16, 1, 8, False), (2, 32, 2, 16, False), (1, 64, 4, 64, False),
+                  (2, 24, 2, 32, False), (1, 1000, 32, 64, False), (*WKV_TRAIN, True),
+                  (*GRAD_CHECK, 32, 64, True),          # phase 9b (f32, 4 layers)
+                  (4, 32, 2, 32, True)]                 # launch.train.main's smoke config
+# Limit of the WKV backward against autograd of the plain version: every
+# gradient within REL of its largest |value|, plus one bf16 ulp (rtol
+# 2**-7) where the gradient is bf16.  REL is 25x the f32 spread of autograd
+# of the plain version from an f64 oracle, as tests/test_torch_wkv_bwd.py
+# measures it (at most 2.5e-7 for dr, dk, dv, dw and ds0, and 2e-6 for du,
+# which sums B*S steps), at the test shapes, S = 1024 under the model's
+# law of w and S = 4096 with every w near e^-8.  A limit relative to each tensor's largest value, not to each
+# element: dw near w = e^-8 and entries that cancel have no element-scale
+# f32 accuracy in either version.
+WKV_BWD_REL = {"du": 5e-5, "other": 6.25e-6}
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+# full llama3_8b decode through the int8 and the bf16 cache: batch x steps
+KV_INT8 = (2, 64)
 
 
 # Python's collector pauses in this process, (generation, seconds) each: a
@@ -310,6 +363,10 @@ def phase_build() -> None:
                  or "smem" in ln or "warning" in ln]
         emit("build", kernel=name, built=bool(log), ptxas=ptxas)
     emit("build", seconds=secs, kernels=list(KERNEL_SOURCES))
+    for name, entries in _build.ENTRY_POINTS.items():
+        lib = _build.load_library(name)
+        missing = [e for e in entries if not hasattr(lib, e)]
+        check(not missing, f"lib{name} lacks the entry points {missing}")
     lib = _build.load_library("flash_attention")
     emit("build", kernel="flash_attention", wgmma_dynamic_smem_bytes={
         hd: lib.repro_flash_attention_wgmma_smem_bytes(hd) for hd in fa.WGMMA_HEAD_DIMS},
@@ -328,13 +385,20 @@ def phase_build() -> None:
               f"{kernel} lacks HGMMA or UTMALDG in its SASS: {sass}")
     lib = _build.load_library("rwkv_wkv")
     emit("build", kernel="rwkv_wkv", chunked_dynamic_smem_bytes={
-        f"{'bf16' if bw else 'f32'}_w": lib.repro_wkv_chunked_smem_bytes(bw) for bw in (0, 1)})
+        f"{'bf16' if bw else 'f32'}_w": lib.repro_wkv_chunked_smem_bytes(bw) for bw in (0, 1)},
+         backward_dynamic_smem_bytes={hd: lib.repro_wkv_bwd_smem_bytes(hd)
+                                      for hd in wkv.KERNEL_HEAD_DIMS})
     sass = sass_instructions("rwkv_wkv", "wkv_fwd_chunked_kernel",
                              ("HMMA", "LDSM", "LDGSTS", "HGMMA", "UTMALDG", "LDL", "STL"))
     emit("build", kernel="rwkv_wkv", sass=sass)
     check(len(sass) == 2 and
           all(c["HMMA"] > 0 and c["LDGSTS"] > 0 for c in sass.values()),
           f"the chunked WKV kernel lacks HMMA or LDGSTS in its SASS: {sass}")
+    # the backward's state rows and columns must stay in registers
+    sass = sass_instructions("rwkv_wkv", "wkv_bwd_kernel", ("LDL", "STL"))
+    emit("build", kernel="rwkv_wkv", backward_sass=sass)
+    check(len(sass) == 16 and all(c["LDL"] == c["STL"] == 0 for c in sass.values()),
+          f"the WKV backward kernel uses local memory: {sass}")
 
 
 def sass_instructions(source: str, kernel: str, opcodes) -> dict:
@@ -684,10 +748,273 @@ def wkv_choice_times(gen) -> None:
         uf = u.float()
         times = {name: device_ms(lambda n=name: wkv.launch(n, r, k, v, w, uf, s0), 50,
                                  _WKV_KERNEL[name])
-                 for name in wkv.VARIANTS}
+                 for name in _WKV_KERNEL}
         emit("wkv_choice", shape=[b, s, h, hd], kernel_ms=times,
              wrapper_picks=wkv.kernel_variant(r.dtype, w.dtype, hd, s),
              chunked_min_seq=wkv.CHUNKED_MIN_SEQ)
+
+
+def wkv_bwd_ratio(name: str, got, ref) -> float:
+    """Largest |got - ref| / (REL max|ref| + rtol |ref|): at most 1 within
+    the limit (:data:`WKV_BWD_REL`)."""
+    rel = WKV_BWD_REL["du" if name == "du" else "other"]
+    rtol = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 0.0
+    got, ref = got.float(), ref.float()
+    scale = rel * float(ref.abs().max().clamp(min=1e-30))
+    return float(((got - ref).abs() / (scale + rtol * ref.abs())).max())
+
+
+def wkv_grads(fn, args, dout, dsT) -> dict:
+    """The six gradients of ``fn`` (``wkv_bhsd`` or its plain version) by
+    autograd on fresh leaves of ``args``' layout, for dout and dsT."""
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    out, sT = fn(*leaves)
+    heads, grads_in = [out], [dout]
+    if dsT is not None:
+        heads.append(sT)
+        grads_in.append(dsT)
+    return dict(zip(WKV_GRADS, torch.autograd.grad(heads, leaves, grads_in)))
+
+
+def wkv_bwd_bound(b, h, s, hd, io_bytes, w_bytes) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, operations, bytes) of the WKV gradient:
+    12 hd^2 f32 operations per (b, h, t) -- the S and G recurrences (an
+    FMA per entry each) and four hd-long dots a row (dr, dk, dv, dw) -- at
+    67 TFLOP/s, or r/k/v/dout and w read once and dr/dk/dv and dw written
+    once (plus u, s0, du, ds0) at 3.35 TB/s."""
+    ops = 12 * hd * hd * b * h * s
+    nbytes = (b * h * s * hd * (7 * io_bytes + 2 * w_bytes) + 2 * h * hd * 4
+              + 2 * b * h * hd * hd * 4)
+    t_ops, t_bytes = ops / PEAK_FLOPS["f32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", ops, nbytes
+
+
+def phase_wkv_backward() -> tuple[dict, list]:
+    """The WKV backward kernel through ``wkv_bhsd``'s autograd Function vs
+    autograd of the plain version at every shape, dtype and law of w, with
+    nonzero s0 and dsT; each call run twice for identical bits; a planted
+    fault at S >= 256; times at the training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    timed, rows = {}, []
+    for b, s, h, hd, model_layout in WKV_BWD_SHAPES:
+        for dtype in ("f32", "bf16"):
+            for w_law in ("uniform", "model"):
+                args = wkv_inputs(b, s, h, hd, dtype, w_law, gen, model_layout)
+                dout = torch.randn((b, s, h, hd) if model_layout else (b, h, s, hd),
+                                   generator=gen, device="cuda").to(args[0].dtype)
+                if model_layout:
+                    dout = dout.transpose(1, 2)
+                dsT = torch.randn(args[5].shape, generator=gen, device="cuda")
+                before = dict(wkv.wkv_bhsd.variant_launches)
+                got = wkv_grads(wkv.wkv_bhsd, args, dout, dsT)
+                served = sorted(n for n, c in wkv.wkv_bhsd.variant_launches.items()
+                                if c != before[n])
+                ref = wkv_grads(wkv.wkv_bhsd_plain, args, dout, dsT)
+                torch.cuda.synchronize()
+                ratios = {g: wkv_bwd_ratio(g, got[g], ref[g]) for g in WKV_GRADS}
+                fwd = wkv.kernel_variant(args[0].dtype, args[3].dtype, hd, s)
+                row = dict(shape=[b, s, h, hd], dtype=dtype, w_law=w_law,
+                           layout="model [B,S,H,hd]" if model_layout else "[B,H,S,hd]",
+                           forward_kernel=fwd, launched=served,
+                           max_abs_err_by_grad={g: float((got[g].float() - ref[g].float())
+                                                         .abs().max()) for g in WKV_GRADS},
+                           limit_ratio_by_grad=ratios, limit_ratio=max(ratios.values()))
+                row["max_abs_err"] = max(row["max_abs_err_by_grad"].values())
+                row["ok"] = row["limit_ratio"] <= 1
+                check(served == sorted(["backward", fwd]),
+                      f"launch counts show {served} serving {row}")
+                again = wkv_grads(wkv.wkv_bhsd, args, dout, dsT)
+                row["two_calls_bit_equal"] = all(torch.equal(again[g], got[g])
+                                                 for g in WKV_GRADS)
+                del again
+                if s >= 256:
+                    bad_dout = dout.clone()
+                    bad_dout[:, :, 3 * s // 4] = 0
+                    bad = wkv_grads(wkv.wkv_bhsd_plain, args, bad_dout, dsT)
+                    row["fault_limit_ratio"] = max(wkv_bwd_ratio(g, bad[g], ref[g])
+                                                   for g in WKV_GRADS)
+                    row["fault_rejected"] = row["fault_limit_ratio"] > 1
+                    del bad, bad_dout
+                if (b, s, h, hd) == WKV_TRAIN and dtype == "bf16" and w_law == "model":
+                    row.update(wkv_bwd_times(args, dout))
+                    timed[dtype] = row
+                emit("wkv_backward", **row)
+                rows.append(row)
+                check(row["ok"], f"the WKV backward disagrees with autograd of the plain "
+                                 f"version: {row}")
+                check(row.get("fault_rejected", True),
+                      f"the limit lets a dropped dout step through: {row}")
+                check(row["two_calls_bit_equal"], f"two identical WKV backward calls "
+                                                  f"differ: {row}")
+                del args, got, ref, dout, dsT
+    return timed, rows
+
+
+def wkv_bwd_times(args, dout) -> dict:
+    """The backward kernel alone (no dsT, as the model calls it), the
+    forward kernel that serves the same call, the backward of autograd of
+    the plain version (a yardstick: it repeats the kernel's function),
+    and the bound from this shape's work."""
+    r, k, v, w, u, s0 = args
+    b, h, s, hd = r.shape
+    uf = u.float()
+    row = dict(kernel_ms=time_ms(lambda: wkv.wkv_bhsd_bwd(r, k, v, w, u, s0, dout), 5),
+               forward_kernel_ms=time_ms(
+                   lambda: wkv.launch(wkv.kernel_variant(r.dtype, w.dtype, hd, s),
+                                      r, k, v, w, uf, s0), 10))
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    out, _ = wkv.wkv_bhsd_plain(*leaves)
+    row["plain_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, dout,
+                                                          retain_graph=True), 1)
+    del out, leaves
+    row["library_ms"] = None                 # no PyTorch call computes it
+    row["bound_ms"], row["bound_by"], ops, nbytes = wkv_bwd_bound(
+        b, h, s, hd, r.element_size(), w.element_size())
+    row.update(gflop=ops / 1e9, mbytes=nbytes / 1e6,
+               bytes_bound_ms=nbytes / PEAK_BYTES * 1e3,
+               achieved_tflops=ops / row["kernel_ms"] / 1e9,
+               bound_share=row["bound_ms"] / row["kernel_ms"],
+               # what the kernel runs beyond the function's work: S twice (the
+               # recompute from checkpoints) and G twice (rows and columns)
+               executed_ops_per_step="about 20 hd^2",
+               checkpoint_mbytes=b * h * ((s - 1) // wkv.BWD_CHUNK) * hd * hd * 4 / 1e6)
+    return row
+
+
+def wkv_bwd_row(timed_row: dict, checks: list, launches: int, path: str) -> dict:
+    """The kernels-line entry of the WKV backward kernel: errors over every
+    phase-8b row, times at the training shape."""
+    return {
+        "name": "wkv_bhsd_bwd[backward]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv_wkv.py:61",
+        "replaces_note": ("the gradient of that kernel's function; the TPU kernel is forward "
+                          "only and JAX differentiates its jnp model path "
+                          "(src/repro/models/rwkv.py:76 wkv_chunked)"),
+        "launches": launches,
+        "launches_counted_on": path,
+        "serves": "every WKV call under grad: f32 or bf16 r/k/v, f32 or bf16 w, hd 8-64",
+        "max_abs_err": max(r["max_abs_err"] for r in checks),
+        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in checks if r["dtype"] == d)
+                                 for d in ("f32", "bf16")},
+        "tol": {"rel_of_max": WKV_BWD_REL, "rtol_bf16": 2.0 ** -7},
+        "limit_ratio": max(r["limit_ratio"] for r in checks),
+        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in checks
+                                     if "fault_limit_ratio" in r),
+        "two_calls_bit_equal": all(r["two_calls_bit_equal"] for r in checks),
+        "checked_shapes": sorted({tuple(r["shape"]) for r in checks}),
+        "ms": timed_row["kernel_ms"],
+        "plain_ms": timed_row["plain_ms"],
+        "bound_ms": timed_row["bound_ms"],
+        "bound_by": timed_row["bound_by"],
+        "library_ms": None,
+        "bytes_bound_ms": timed_row["bytes_bound_ms"],
+        "achieved_tflops": timed_row["achieved_tflops"],
+        "bound_share": timed_row["bound_share"],
+        "forward_kernel_ms": timed_row["forward_kernel_ms"],
+        "shape": timed_row["shape"],
+        "dtype": "bf16 r/k/v/dout and dr/dk/dv, f32 w and dw",
+    }
+
+
+def phase_kv_int8(model) -> dict:
+    """Full llama3_8b decode, token by token over ``KV_INT8`` steps, with
+    the int8 cache and with the bf16 cache from the same tokens: the int8
+    logits within 5 % of the bf16 ones (``tests/test_archs_smoke.py``'s
+    bar), the cache int8.  ``kv_dtype`` is read by ``init_cache`` alone, so
+    both runs use the one model's weights."""
+    cfg = model.cfg
+    b, n = KV_INT8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device="cuda")
+    runs = {}
+    reset_launches()
+    try:
+        for kv_dtype in ("bf16", "int8"):
+            model.kv_dtype = kv_dtype
+            cache = model.init_cache(b, n)
+            logits, secs = [], []
+            with torch.no_grad():
+                for t in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    logits.append(lg[:, 0])
+            runs[kv_dtype] = dict(logits=torch.stack(logits, dim=1), cache=cache, secs=secs)
+    finally:
+        model.kv_dtype = "bf16"
+    ref, q = runs["bf16"]["logits"], runs["int8"]["logits"]
+    worst = float((q - ref).abs().max())
+    scale = float(ref.abs().max())
+    cache = runs["int8"]["cache"]
+    nbytes = {kv: sum(t.numel() * t.element_size() for c in runs[kv]["cache"]
+                      for t in c.values()) for kv in runs}
+    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, steps=n, param_dtype="bf16",
+               worst_logit_gap=worst, max_abs_bf16_logit=scale, rel_gap=worst / scale,
+               limit=0.05, logits_finite=bool(torch.isfinite(q).all()),
+               cache_dtypes={name: str(t.dtype) for name, t in cache[0].items()},
+               cache_bytes=nbytes, cache_bytes_ratio=nbytes["bf16"] / nbytes["int8"],
+               decode_step_ms_median={kv: statistics.median(r["secs"][2:]) * 1e3
+                                      for kv, r in runs.items()},
+               flash_launches=fa.flash_attention_bhsd.launches)
+    emit("kv_int8", **row)
+    check(row["logits_finite"] and worst / scale < 0.05,
+          f"int8 KV decode is off the bf16 cache's logits by more than 5 %: {row}")
+    check(cache[0]["k"].dtype == cache[0]["v"].dtype == torch.int8, "the cache is not int8")
+    del runs, cache
+    return row
+
+
+def chunked_route(r, k, v, w, u, s0=None):
+    """``ops.rwkv_wkv`` by the model's chunked torch form, on any device:
+    the CPU route of the model, differentiated by autograd."""
+    return wkv_chunked(r, k, v, w, u, s0, chunk=16)
+
+
+def phase_rwkv_gradients(cfg_full) -> int:
+    """``LM.loss`` and every gradient leaf of rwkv6_1b6 through the kernels
+    (sequential forward, backward kernel) vs the same with the WKV routed
+    to the chunked torch form: full width, 4 layers, f32, TF32 off.
+    Returns the backward kernel's launches in the kernel route."""
+    cfg = replace(cfg_full, n_layers=4)
+    model = LM(cfg, param_dtype=torch.float32, seed=SEED, device="cuda")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    b, s = GRAD_CHECK
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    reset_launches()
+    loss_k, grads_k = model_grads(model, batch)
+    launches = dict(wkv.wkv_bhsd.variant_launches)
+    original = rwkv_mod.ops
+    rwkv_mod.ops = types.SimpleNamespace(rwkv_wkv=chunked_route)
+    try:
+        reset_launches()
+        loss_s, grads_s = model_grads(model, batch)
+        scan_launches = wkv.wkv_bhsd.launches
+    finally:
+        rwkv_mod.ops = original
+    errs = {name: float((g - grads_s[name]).abs().max() / grads_s[name].abs().max().clamp(
+        min=1e-30)) for name, g in grads_k.items()}
+    worst = max(errs, key=errs.get)
+    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s,
+               dtype="f32", loss_kernels=loss_k, loss_chunked=loss_s,
+               loss_abs_err=abs(loss_k - loss_s), leaves=len(errs), worst_leaf=worst,
+               worst_rel_err=errs[worst], median_rel_err=statistics.median(errs.values()),
+               limit=GRAD_TOL, kernel_launches=launches,
+               chunked_route_wkv_launches=scan_launches)
+    emit("rwkv_gradients", **row)
+    check(launches == wkv_counts(sequential=cfg.n_layers, backward=cfg.n_layers),
+          f"kernel-route WKV launches {launches}")
+    check(scan_launches == 0, "the chunked route launched a WKV kernel")
+    check(all(e <= GRAD_TOL for e in errs.values()) and abs(loss_k - loss_s) < 1e-4,
+          f"RWKV gradients through the kernels differ from the chunked route: {row}")
+    del model, grads_k, grads_s
+    return launches["backward"]
 
 
 def phase_prefill(model) -> dict:
@@ -926,6 +1253,12 @@ def reset_launches() -> None:
     wkv.reset_launch_counts()
 
 
+def wkv_counts(**launches) -> dict:
+    """A full ``variant_launches`` dict of the WKV kernels: the given
+    counts, 0 for every other kernel."""
+    return {**dict.fromkeys(wkv.VARIANTS, 0), **launches}
+
+
 def flash_counts(**launches) -> dict:
     """A full ``variant_launches`` dict of the flash kernels: the given
     counts, 0 for every other variant."""
@@ -968,7 +1301,7 @@ def phase_rwkv_prefill(model, wkv_ms: float) -> dict:
         launches.append(dict(wkv.wkv_bhsd.variant_launches))
         check(tuple(logits.shape) == (b, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "rwkv prefill logits are not finite")
-        check(launches[-1] == {"chunked": cfg.n_layers, "sequential": 0},
+        check(launches[-1] == wkv_counts(chunked=cfg.n_layers),
               f"WKV launches in one prefill {launches[-1]}, want {cfg.n_layers} chunked")
     row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, dtype="bf16",
                launches_per_call=launches, seconds=secs, gc_seconds_in_calls=gc_secs,
@@ -991,7 +1324,7 @@ def phase_rwkv_consistency(cfg_full) -> None:
     wkv.reset_launch_counts()
     last = serve.prefill(model, tokens)
     prefill_launches = dict(wkv.wkv_bhsd.variant_launches)
-    check(prefill_launches == {"chunked": 0, "sequential": cfg.n_layers},
+    check(prefill_launches == wkv_counts(sequential=cfg.n_layers),
           f"f32 rwkv prefill WKV launches {prefill_launches}, want {cfg.n_layers} sequential")
     with torch.no_grad():
         full = model(tokens)
@@ -1045,7 +1378,7 @@ def phase_rwkv_main_path() -> dict:
          kernel_launches=launches, flash_launches=fa.flash_attention_bhsd.launches)
     check(rc == 0, f"serve.main exited {rc}")
     n_layers = get_config("rwkv6_1b6").n_layers
-    want = {"chunked": n_layers, "sequential": n_layers * (plen + new)}
+    want = wkv_counts(chunked=n_layers, sequential=n_layers * (plen + new))
     check(launches == want and wkv.wkv_bhsd.launches == sum(want.values()),
           f"WKV launches on the RWKV main path {launches}, want {want}")
     check(fa.flash_attention_bhsd.launches == 0, "the RWKV path launched flash attention")
@@ -1262,13 +1595,13 @@ def phase_gradients(cfg_full) -> int:
     return launches["backward"]
 
 
-def phase_train(cfg_full) -> dict:
-    """Full-width llama3_8b, 8 layers, bf16 params: ``Trainer.step_fn`` on
-    one repeated batch, timed at the trainer's default AdamW; one
-    ``remat="full"`` step; then fresh weights at peak lr ``TRAIN_LR``,
-    where the loss must fall.  The training main path: the launch counts
-    are reset just before the timed steps and read just after."""
-    cfg = replace(cfg_full, n_layers=TRAIN_LAYERS)
+def train_cell(cfg, read_launches, profile_named: str) -> dict:
+    """Full-width ``cfg`` with bf16 params and f32 AdamW state:
+    ``Trainer.step_fn`` on one repeated B x S = ``TRAIN_SHAPE`` batch,
+    timed at the trainer's default AdamW; one ``remat="full"`` step; then
+    fresh weights at peak lr ``TRAIN_LR``, where the loss must fall.  The
+    training main path: the launch counts are reset just before the timed
+    steps and read (``read_launches()``) just after."""
     seq, batch_size = TRAIN_SHAPE[1], TRAIN_SHAPE[0]
     with tempfile.TemporaryDirectory() as ckpt_dir:
         trainer = Trainer(cfg, ShapeConfig("train_4k_b1", seq, batch_size, "train"),
@@ -1297,16 +1630,16 @@ def phase_train(cfg_full) -> dict:
             secs.append(time.perf_counter() - t0)
             splits.append({name: events[name].elapsed_time(events[nxt]) for name, nxt in
                            (("forward", "backward"), ("backward", "adamw"), ("adamw", "end"))})
-        launches = dict(fa.flash_attention_bhsd.variant_launches)
+        launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         profile = profile_window(lambda: trainer.step_fn(params, opt_state, batch), 1, top=10,
-                                 named="flash")
+                                 named=profile_named)
         # one step with every layer recomputed in the backward pass
         trainer.model.remat = "full"
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         _, remat_secs, _ = timed_call(lambda: trainer.step_fn(params, opt_state, batch))
-        remat_launches = dict(fa.flash_attention_bhsd.variant_launches)
+        remat_launches = read_launches()
         remat_peak = torch.cuda.max_memory_allocated()
         # the falling-loss check: fresh weights and state, peak lr TRAIN_LR
         del params, opt_state, metrics
@@ -1333,16 +1666,50 @@ def phase_train(cfg_full) -> dict:
                remat_full=dict(step_s=remat_secs, launches=remat_launches,
                                peak_memory_gb=remat_peak / 1e9),
                profile=profile)
-    emit("train", **row)
-    want = flash_counts(wgmma=cfg.n_layers * TRAIN_STEPS,
-                        backward_wgmma=cfg.n_layers * TRAIN_STEPS)
-    check(launches == want, f"training launches {launches}, want {want}")
-    check(remat_launches == flash_counts(wgmma=2 * cfg.n_layers, backward_wgmma=cfg.n_layers),
-          f"remat='full' step launches {remat_launches}")
-    check(all(np.isfinite(losses + falling)), f"training losses are not finite: {row}")
+    return row
+
+
+def check_training(row: dict) -> None:
+    """Finite losses, and from fresh weights a falling loss."""
+    falling = row["losses_falling"]
+    check(all(np.isfinite(row["losses"] + falling)), f"training losses are not finite: {row}")
     # warmup-cosine's first scale is 0: steps 0 and 1 see the same weights
     check(falling[0] == falling[1] and falling[-1] < falling[2] < falling[1],
           f"the loss does not fall on a repeated batch at lr {TRAIN_LR}: {falling}")
+
+
+def phase_train(cfg_full) -> dict:
+    """llama3_8b at full width, ``TRAIN_LAYERS`` layers (:func:`train_cell`):
+    8 tensor-core flash forwards and backwards a step."""
+    cfg = replace(cfg_full, n_layers=TRAIN_LAYERS)
+    row = train_cell(cfg, lambda: dict(fa.flash_attention_bhsd.variant_launches), "flash")
+    emit("train", **row)
+    check_training(row)
+    want = flash_counts(wgmma=cfg.n_layers * TRAIN_STEPS,
+                        backward_wgmma=cfg.n_layers * TRAIN_STEPS)
+    check(row["launches"] == want, f"training launches {row['launches']}, want {want}")
+    check(row["remat_full"]["launches"] == flash_counts(wgmma=2 * cfg.n_layers,
+                                                        backward_wgmma=cfg.n_layers),
+          f"remat='full' step launches {row['remat_full']['launches']}")
+    return row
+
+
+def phase_rwkv_train(cfg) -> dict:
+    """rwkv6_1b6 at full width and full depth (:func:`train_cell`): 24
+    chunked WKV forwards and 24 WKV backwards a step, no dout copied, no
+    flash kernel; the WKV kernels' own device time in the profile."""
+    row = train_cell(cfg, lambda: {**wkv.wkv_bhsd.variant_launches,
+                                   "dout_copies": wkv.wkv_bhsd.dout_copies,
+                                   "flash": fa.flash_attention_bhsd.launches}, "wkv_")
+    emit("rwkv_train", **row)
+    check_training(row)
+    n = cfg.n_layers
+    want = {**wkv_counts(chunked=n * TRAIN_STEPS, backward=n * TRAIN_STEPS),
+            "dout_copies": 0, "flash": 0}
+    check(row["launches"] == want, f"RWKV training launches {row['launches']}, want {want}")
+    want = {**wkv_counts(chunked=2 * n, backward=n), "dout_copies": 0, "flash": 0}
+    check(row["remat_full"]["launches"] == want,
+          f"remat='full' RWKV step launches {row['remat_full']['launches']}")
     return row
 
 
@@ -1379,6 +1746,24 @@ def phase_trainer() -> dict:
     check(all(np.isfinite(ref["loss"])), "trainer losses are not finite")
     check(launches == flash_counts(cuda_core=steps * cfg.n_layers, backward=steps * cfg.n_layers),
           f"trainer launches {launches}")
+    # RWKV's training launcher on the card: its smoke config (f32, hd 32)
+    # takes the sequential forward kernel and the backward kernel
+    with tempfile.TemporaryDirectory() as root:
+        argv = [*RWKV_TRAIN_MAIN, "--ckpt-dir", root]
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = train_launch.main(argv)
+        torch.cuda.synchronize()
+        wkv_launches = dict(wkv.wkv_bhsd.variant_launches)
+    n = get_smoke_config("rwkv6_1b6").n_layers * 30     # 30 steps: main's default
+    rwkv_row = dict(argv=argv, rc=rc, seconds=time.perf_counter() - t0,
+                    wkv_launches=wkv_launches, flash_launches=fa.flash_attention_bhsd.launches)
+    emit("trainer_rwkv_main", **rwkv_row)
+    check(rc == 0, f"launch.train.main exited {rc}")
+    check(wkv_launches == wkv_counts(sequential=n, backward=n),
+          f"launch.train.main --arch rwkv6_1b6 WKV launches {wkv_launches}")
+    check(fa.flash_attention_bhsd.launches == 0, "RWKV training launched flash attention")
+    row["rwkv_main"] = rwkv_row
     return row
 
 
@@ -1440,6 +1825,7 @@ def main() -> int:
     timed, checks = phase_kernel()
     wkv_timed, wkv_checks = phase_wkv()
     bwd_timed, bwd_checks = phase_backward()
+    wkv_bwd_timed, wkv_bwd_checks = phase_wkv_backward()
 
     cfg = get_config("llama3_8b")
     model = LM(cfg, seed=SEED, device="cuda")        # bf16, full depth
@@ -1447,6 +1833,7 @@ def main() -> int:
     cuda_core_launches = phase_consistency(cfg)
     phase_serve(model)
     phase_profile(model)
+    phase_kv_int8(model)
     del model
     torch.cuda.empty_cache()
     launches = phase_main_path()
@@ -1463,7 +1850,11 @@ def main() -> int:
 
     grad_launches = phase_gradients(cfg)
     torch.cuda.empty_cache()
+    phase_rwkv_gradients(rwkv_cfg)
+    torch.cuda.empty_cache()
     train = phase_train(cfg)
+    torch.cuda.empty_cache()
+    rwkv_train = phase_rwkv_train(rwkv_cfg)
     torch.cuda.empty_cache()
     phase_trainer()
 
@@ -1484,7 +1875,11 @@ def main() -> int:
                              f"every full-width llama3_8b train step ({TRAIN_LAYERS} "
                              f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)"),
                 backward_row(bwd_timed["f32"], bwd_checks, "backward", grad_launches,
-                             "the 4-layer f32 loss gradient of phase 9")]
+                             "the 4-layer f32 loss gradient of phase 9"),
+                wkv_bwd_row(wkv_bwd_timed["bf16"], wkv_bwd_checks,
+                            rwkv_train["launches"]["backward"],
+                            f"every full-width rwkv6_1b6 train step ({rwkv_cfg.n_layers} "
+                            f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)")]
     emit("done", seconds=time.perf_counter() - t_start, gc_collections=len(GC_PAUSES),
          gc_full_collections=sum(g == 2 for g, _ in GC_PAUSES),
          gc_seconds=sum(p for _, p in GC_PAUSES),

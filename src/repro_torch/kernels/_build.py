@@ -16,8 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "library_path",
-           "load_library", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC", "ENTRY_POINTS", "NVCC_FLAGS", "SOURCES", "build",
+           "library_path", "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -26,6 +26,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 # and shared memory per kernel into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Every source and the kernel entry points its library exports: what
+# ``chip_smoke.py`` builds (one nvcc per source) and checks is there.
+ENTRY_POINTS = {
+    "flash_attention": ("repro_flash_attention_fwd", "repro_flash_attention_fwd_wgmma",
+                        "repro_flash_attention_bwd", "repro_flash_attention_bwd_wgmma"),
+    "rwkv_wkv": ("repro_wkv_fwd", "repro_wkv_fwd_chunked", "repro_wkv_bwd"),
+}
+SOURCES = tuple(ENTRY_POINTS)
 
 
 def nvcc_path() -> str:

@@ -120,6 +120,55 @@
 //   thread loads step t+1 from device memory while it computes step t.
 // * There is no chunk restriction: any S >= 1 runs, and S = 1 is one
 //   decode step with s0 the cache's state.
+//
+// The backward kernel (wkv_bwd_kernel, repro_wkv_bwd).  The TPU kernel has
+// no backward (JAX differentiates its jnp scan), so nothing is translated:
+// it computes dr, dk, dv, dw, du and ds0 of the function above from the
+// forward's inputs, dout and dsT, for every call the forward kernels take
+// (f32 or bf16 r/k/v, f32 or bf16 w, hd 8-64, any S >= 1).  With S_t the
+// state before step t and G_t = dL/dS_t (G_S = dsT):
+//
+//   dr_t[i] = sum_j S_t[i][j] dout_t[j] + u[i] k_t[i] (v_t . dout_t)
+//   dk_t[i] = sum_j G_{t+1}[i][j] v_t[j] + u[i] r_t[i] (v_t . dout_t)
+//   dv_t[j] = sum_i G_{t+1}[i][j] k_t[i] + (sum_i r_t[i] u[i] k_t[i]) dout_t[j]
+//   dw_t[i] = sum_j G_{t+1}[i][j] S_t[i][j]
+//   du[i]   = sum_t r_t[i] k_t[i] (v_t . dout_t),   ds0 = G_0
+//   G_t[i][j] = w_t[i] G_{t+1}[i][j] + r_t[i] dout_t[j]
+//
+// * Rows of S and of G, and columns of G, each evolve alone, so one thread
+//   carries one row or one column in registers and a step needs no sum
+//   across threads.  A block is one warp of 32 rows or 32 columns (hd of
+//   them below hd 32); the grid is (b*h, row blocks then column blocks):
+//   128 blocks at the training shape (B=1, H=32, hd 64), where the
+//   sequential forward has 32.
+// * A row block sweeps forward from s0 (dr, du, and its rows of S before
+//   every 16th step written to a global scratch as checkpoints), then
+//   backward from dsT chunk by chunk: it recomputes the chunk's 16 states
+//   of its rows from their checkpoint into shared memory (a thread-private
+//   column each) and reads them back in reverse for dw, next to dk.  Only
+//   the thread that wrote a checkpoint reads it, so no barrier orders them.
+//   A column block sweeps backward alone (dv, then ds0).  No atomics: du is
+//   one partial per (b, h), summed over b by the wrapper, so two calls give
+//   identical bits.
+// * dw from the states themselves.  The identity
+//   w_t dw_t = sum_{s>t} r_s.(S_s dout_s) - sum_{s>=t} k_s.(G_{s+1} v_s)
+//   (plus the end terms) needs no stored states, but it subtracts sums over
+//   up to S steps of f32-rounded terms and divides by w >= e^-8: at S=4096
+//   its dw misses the limit more than 100-fold, where the recompute meets
+//   it (tests/test_torch_wkv_bwd.py).  The checkpoints take
+//   B*H*((S-1)/16)*hd^2*4 bytes: 134 MB at the training shape.
+// * Each chunk of r, k, v, w and dout is staged into shared memory as f32,
+//   with v.dout and sum_i r u k per step; the vectors every thread reads
+//   whole (dout and v by rows, r, k and w by columns) come as float4
+//   broadcasts.  Dots run as four partial sums.
+// * Bound at the training shape (B=1, S=4096, H=32, hd 64, bf16 r/k/v/dout
+//   and gradients, f32 w and dw): the function's work is one S recurrence,
+//   one G recurrence and four hd-long dots a (row, step), 12 hd^2 f32
+//   operations per (b, h, t): 6.4 GFLOP, 0.096 ms at 67 TFLOP/s; its 184 MB
+//   take 0.055 ms at 3.35 TB/s, so it is bound by operations.  The kernel
+//   runs S twice (the recompute) and G twice (rows and columns), and each
+//   block is one warp walking a chain of S steps: latency, not throughput,
+//   sets its time.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -779,4 +828,322 @@ extern "C" int repro_wkv_fwd_chunked(const void* r, const void* k, const void* v
 // Dynamic shared memory of one chunked block (bytes).
 extern "C" int repro_wkv_chunked_smem_bytes(int bf16_w) {
   return bf16_w ? ChunkSmem<__nv_bfloat16>::kBytes : ChunkSmem<float>::kBytes;
+}
+
+
+// ---------------------------------------------------------------------------
+// The backward kernel (every dtype, hd 8-64).
+namespace {
+
+constexpr int kBwdChunk = 16;          // steps between state checkpoints
+
+template <int HD>
+struct BwdShape {
+  static constexpr int kGroup = HD < 32 ? HD : 32;   // rows (or columns) a block: one warp
+  static constexpr int kGroups = HD / kGroup;        // row blocks (and column blocks) a head
+  // floats of dynamic shared memory: r, k, v, w, dout of one chunk
+  // ([kBwdChunk][HD] each, f32), u [HD], v.dout and sum(r*u*k) [kBwdChunk],
+  // then the row blocks' states of one chunk [kBwdChunk][HD][kGroup]
+  static constexpr int kStage = 5 * kBwdChunk * HD;
+  static constexpr int kFloats = kStage + HD + 2 * kBwdChunk + kBwdChunk * HD * kGroup;
+  static constexpr int kBytes = kFloats * 4;
+};
+
+// sum_j a[j] * b[j] for a in registers and b in shared memory (16-byte
+// aligned), in four partial sums
+template <int HD>
+__device__ __forceinline__ float dot(const float (&a)[HD], const float* b) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < HD; j += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(b + j);
+    acc[0] = fmaf(a[j], q.x, acc[0]);
+    acc[1] = fmaf(a[j + 1], q.y, acc[1]);
+    acc[2] = fmaf(a[j + 2], q.z, acc[2]);
+    acc[3] = fmaf(a[j + 3], q.w, acc[3]);
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// Loads steps t0 .. t0+n-1 of r, k, v, w and dout, upcast to f32, into
+// shared memory, then v.dout and sum_i r*u*k of each step.  Every thread of
+// the block calls it; it ends behind a barrier.
+template <typename T, typename TW, int HD>
+__device__ __forceinline__ void stage_chunk(float* sm, const T* __restrict__ r,
+                                            const T* __restrict__ k, const T* __restrict__ v,
+                                            const TW* __restrict__ w,
+                                            const T* __restrict__ dout, long long in_base,
+                                            long long do_base, Strides st, Strides dst, int t0,
+                                            int n) {
+  constexpr int G = BwdShape<HD>::kGroup;
+  constexpr int kC = kBwdChunk * HD;
+  float* r_s = sm;
+  float* k_s = sm + kC;
+  float* v_s = sm + 2 * kC;
+  float* w_s = sm + 3 * kC;
+  float* d_s = sm + 4 * kC;
+  const float* u_s = sm + 5 * kC;
+  float* vdo_s = sm + 5 * kC + HD;
+  float* ruk_s = vdo_s + kBwdChunk;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < n * HD; e += G) {
+    const int tt = e / HD, j = e % HD;
+    const long long at = in_base + static_cast<long long>(t0 + tt) * st.s + j;
+    const long long dat = do_base + static_cast<long long>(t0 + tt) * dst.s + j;
+    r_s[e] = to_f32(r[at]);
+    k_s[e] = to_f32(k[at]);
+    v_s[e] = to_f32(v[at]);
+    w_s[e] = to_f32(w[at]);
+    d_s[e] = to_f32(dout[dat]);
+  }
+  __syncthreads();
+  for (int tt = threadIdx.x; tt < n; tt += G) {
+    float vdo = 0.f, ruk = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < HD; ++j) {
+      vdo = fmaf(v_s[tt * HD + j], d_s[tt * HD + j], vdo);
+      ruk = fmaf(r_s[tt * HD + j] * u_s[j], k_s[tt * HD + j], ruk);
+    }
+    vdo_s[tt] = vdo;
+    ruk_s[tt] = ruk;
+  }
+  __syncthreads();
+}
+
+template <typename T, typename TW, int HD>
+__global__ void __launch_bounds__(BwdShape<HD>::kGroup)
+wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+               const TW* __restrict__ w, const float* __restrict__ u,
+               const float* __restrict__ s0, const T* __restrict__ dout,
+               const float* __restrict__ dsT, T* __restrict__ dr, T* __restrict__ dk,
+               T* __restrict__ dv, TW* __restrict__ dw, float* __restrict__ du,
+               float* __restrict__ ds0, float* __restrict__ ckpt, int heads, int seq,
+               Strides st, Strides dst, Strides gst) {
+  using Sh = BwdShape<HD>;
+  constexpr int G = Sh::kGroup;
+  constexpr int kC = kBwdChunk * HD;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* smem = reinterpret_cast<float*>(bwd_smem);
+  const float* r_s = smem;
+  const float* k_s = smem + kC;
+  const float* v_s = smem + 2 * kC;
+  const float* w_s = smem + 3 * kC;
+  const float* d_s = smem + 4 * kC;
+  float* u_s = smem + 5 * kC;
+  const float* vdo_s = u_s + HD;
+  const float* ruk_s = vdo_s + kBwdChunk;
+  float* hist = u_s + HD + 2 * kBwdChunk;
+
+  const int lane = threadIdx.x;
+  const size_t bh = blockIdx.x;
+  const int b = static_cast<int>(bh / heads), h = static_cast<int>(bh % heads);
+  const long long in_base = b * st.b + h * st.h;
+  const long long do_base = b * dst.b + h * dst.h;
+  const long long g_base = b * gst.b + h * gst.h;
+  const bool rows = blockIdx.y < Sh::kGroups;
+  const int idx = (rows ? blockIdx.y : blockIdx.y - Sh::kGroups) * G + lane;
+  const int nch = (seq + kBwdChunk - 1) / kBwdChunk;
+  const float* s0_bh = s0 + bh * HD * HD;
+  const float* dsT_bh = dsT ? dsT + bh * HD * HD : nullptr;
+  for (int j = lane; j < HD; j += G) u_s[j] = u[h * HD + j];   // read after a barrier
+  auto stage = [&](int c) {
+    stage_chunk<T, TW, HD>(smem, r, k, v, w, dout, in_base, do_base, st, dst, c * kBwdChunk,
+                           min(kBwdChunk, seq - c * kBwdChunk));
+  };
+
+  if (rows) {
+    // Row i of the state and of its gradient evolve alone.
+    const int i = idx;
+    const float ui = u[h * HD + i];
+    // checkpoint c (the state before step c * kBwdChunk, c >= 1) of row i,
+    // stored [c][j][i] so that a warp's stores are adjacent
+    float* ck = ckpt + bh * static_cast<size_t>(nch - 1) * HD * HD + i;
+
+    // Forward sweep: the state from s0; dr, du and the checkpoints.
+    float S[HD];
+#pragma unroll
+    for (int j = 0; j < HD; ++j) S[j] = s0_bh[i * HD + j];
+    float du_acc = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      if (c > 0) {
+#pragma unroll
+        for (int j = 0; j < HD; ++j) ck[(static_cast<size_t>(c - 1) * HD + j) * HD] = S[j];
+      }
+      stage(c);
+      const int t0 = c * kBwdChunk, n = min(kBwdChunk, seq - t0);
+      for (int tt = 0; tt < n; ++tt) {
+        const float ri = r_s[tt * HD + i], ki = k_s[tt * HD + i], wi = w_s[tt * HD + i];
+        const float vdo = vdo_s[tt];
+        const float sdo = dot<HD>(S, d_s + tt * HD);
+        store(dr + g_base + static_cast<long long>(t0 + tt) * gst.s + i, fmaf(ui * ki, vdo, sdo));
+        du_acc = fmaf(ri * ki, vdo, du_acc);
+        const float* vt = v_s + tt * HD;
+#pragma unroll
+        for (int j = 0; j < HD; ++j) S[j] = fmaf(S[j], wi, ki * vt[j]);
+      }
+      __syncthreads();                   // the next chunk overwrites the stage
+    }
+    du[bh * HD + i] = du_acc;
+
+    // Backward sweep, chunk by chunk from the last: the chunk's states
+    // recomputed from its checkpoint into shared memory, then dk and dw
+    // with G (row i of dL/dS after the step) carried back from dsT.
+    float Gr[HD];
+#pragma unroll
+    for (int j = 0; j < HD; ++j) Gr[j] = dsT_bh ? dsT_bh[i * HD + j] : 0.f;
+    float* my_hist = hist + lane;        // [tt][j][lane]: thread-private column
+    for (int c = nch - 1; c >= 0; --c) {
+      stage(c);
+      const int t0 = c * kBwdChunk, n = min(kBwdChunk, seq - t0);
+      {
+        float Sx[HD];
+#pragma unroll
+        for (int j = 0; j < HD; ++j)
+          Sx[j] = c == 0 ? s0_bh[i * HD + j] : ck[(static_cast<size_t>(c - 1) * HD + j) * HD];
+        for (int tt = 0; tt < n; ++tt) {
+#pragma unroll
+          for (int j = 0; j < HD; ++j) my_hist[(tt * HD + j) * G] = Sx[j];
+          const float ki = k_s[tt * HD + i], wi = w_s[tt * HD + i];
+          const float* vt = v_s + tt * HD;
+#pragma unroll
+          for (int j = 0; j < HD; ++j) Sx[j] = fmaf(Sx[j], wi, ki * vt[j]);
+        }
+      }
+      for (int tt = n - 1; tt >= 0; --tt) {
+        const float ri = r_s[tt * HD + i], wi = w_s[tt * HD + i];
+        const float* ht = my_hist + tt * HD * G;
+        float dwa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < HD; ++j) dwa[j & 3] = fmaf(Gr[j], ht[j * G], dwa[j & 3]);
+        const float gv = dot<HD>(Gr, v_s + tt * HD);
+        const long long at = g_base + static_cast<long long>(t0 + tt) * gst.s + i;
+        store(dk + at, fmaf(ui * ri, vdo_s[tt], gv));
+        store(dw + at, (dwa[0] + dwa[1]) + (dwa[2] + dwa[3]));
+        const float* dt = d_s + tt * HD;
+#pragma unroll
+        for (int j = 0; j < HD; ++j) Gr[j] = fmaf(wi, Gr[j], ri * dt[j]);
+      }
+      __syncthreads();
+    }
+  } else {
+    // Column j of G evolves alone: dv, then ds0 = G before step 0.
+    const int j = idx;
+    float Gc[HD];
+#pragma unroll
+    for (int i = 0; i < HD; ++i) Gc[i] = dsT_bh ? dsT_bh[i * HD + j] : 0.f;
+    for (int c = nch - 1; c >= 0; --c) {
+      stage(c);
+      const int t0 = c * kBwdChunk, n = min(kBwdChunk, seq - t0);
+      for (int tt = n - 1; tt >= 0; --tt) {
+        const float dj = d_s[tt * HD + j];
+        const float gk = dot<HD>(Gc, k_s + tt * HD);
+        store(dv + g_base + static_cast<long long>(t0 + tt) * gst.s + j, fmaf(ruk_s[tt], dj, gk));
+        const float* rt = r_s + tt * HD;
+        const float* wt = w_s + tt * HD;
+#pragma unroll
+        for (int i = 0; i < HD; ++i) Gc[i] = fmaf(wt[i], Gc[i], rt[i] * dj);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < HD; ++i) ds0[bh * HD * HD + i * HD + j] = Gc[i];
+  }
+}
+
+template <typename T, typename TW, int HD>
+cudaError_t launch_bwd(const void* r, const void* k, const void* v, const void* w,
+                       const float* u, const float* s0, const void* dout, const float* dsT,
+                       void* dr, void* dk, void* dv, void* dw, float* du, float* ds0,
+                       float* ckpt, int bh, int heads, int seq, Strides st, Strides dst,
+                       Strides gst, cudaStream_t stream) {
+  using Sh = BwdShape<HD>;
+  cudaError_t err = cudaFuncSetAttribute(wkv_bwd_kernel<T, TW, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Sh::kBytes);
+  if (err != cudaSuccess) return err;
+  wkv_bwd_kernel<T, TW, HD><<<dim3(bh, 2 * Sh::kGroups), Sh::kGroup, Sh::kBytes, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const TW*>(w), u, s0, static_cast<const T*>(dout), dsT, static_cast<T*>(dr),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<TW*>(dw), du, ds0, ckpt, heads,
+      seq, st, dst, gst);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TW>
+cudaError_t dispatch_bwd(int hd, const void* r, const void* k, const void* v, const void* w,
+                         const float* u, const float* s0, const void* dout, const float* dsT,
+                         void* dr, void* dk, void* dv, void* dw, float* du, float* ds0,
+                         float* ckpt, int bh, int heads, int seq, Strides st, Strides dst,
+                         Strides gst, cudaStream_t s) {
+  switch (hd) {
+    case 8: return launch_bwd<T, TW, 8>(r, k, v, w, u, s0, dout, dsT, dr, dk, dv, dw, du, ds0,
+                                        ckpt, bh, heads, seq, st, dst, gst, s);
+    case 16: return launch_bwd<T, TW, 16>(r, k, v, w, u, s0, dout, dsT, dr, dk, dv, dw, du, ds0,
+                                          ckpt, bh, heads, seq, st, dst, gst, s);
+    case 32: return launch_bwd<T, TW, 32>(r, k, v, w, u, s0, dout, dsT, dr, dk, dv, dw, du, ds0,
+                                          ckpt, bh, heads, seq, st, dst, gst, s);
+    case 64: return launch_bwd<T, TW, 64>(r, k, v, w, u, s0, dout, dsT, dr, dk, dv, dw, du, ds0,
+                                          ckpt, bh, heads, seq, st, dst, gst, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The backward: dr, dk, dv (r's type), dw (w's type), du [batch, heads,
+// hd] f32 (one partial per batch row, to be summed over it) and ds0
+// [batch, heads, hd, hd] f32 of repro_wkv_fwd's function, for the output
+// gradient dout (r's type, [B, H, S, hd] at its own strides, unit stride
+// over hd) and the final state's dsT (f32 [B, H, hd, hd] contiguous, or
+// null for zero).  r/k/v/w as in repro_wkv_fwd (strides stride_*); the four
+// gradients of [B, H, S, hd] share the strides grad_stride_*.  ckpt is f32
+// scratch of batch * heads * ((seq - 1) / 16) * hd * hd floats.  Launches
+// on `stream` and does not synchronise; returns the cudaError_t.
+extern "C" int repro_wkv_bwd(const void* r, const void* k, const void* v, const void* w,
+                             const void* u, const void* s0, const void* dout, const void* dsT,
+                             void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
+                             void* ckpt, int batch, int heads, int seq, int hd,
+                             long long stride_b, long long stride_h, long long stride_s,
+                             long long dout_stride_b, long long dout_stride_h,
+                             long long dout_stride_s, long long grad_stride_b,
+                             long long grad_stride_h, long long grad_stride_s, int bf16_rkv,
+                             int bf16_w, void* stream) {
+  if (batch <= 0 || heads <= 0 || seq <= 0) return cudaErrorInvalidValue;
+  const Strides st{stride_b, stride_h, stride_s};
+  const Strides dst{dout_stride_b, dout_stride_h, dout_stride_s};
+  const Strides gst{grad_stride_b, grad_stride_h, grad_stride_s};
+  const int bh = batch * heads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* uf = static_cast<const float*>(u);
+  const float* s0f = static_cast<const float*>(s0);
+  const float* dsTf = static_cast<const float*>(dsT);
+  float* duf = static_cast<float*>(du);
+  float* ds0f = static_cast<float*>(ds0);
+  float* ckf = static_cast<float*>(ckpt);
+  if (bf16_rkv) {
+    if (bf16_w)
+      return dispatch_bwd<__nv_bfloat16, __nv_bfloat16>(hd, r, k, v, w, uf, s0f, dout, dsTf, dr,
+                                                        dk, dv, dw, duf, ds0f, ckf, bh, heads,
+                                                        seq, st, dst, gst, s);
+    return dispatch_bwd<__nv_bfloat16, float>(hd, r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv,
+                                              dw, duf, ds0f, ckf, bh, heads, seq, st, dst, gst,
+                                              s);
+  }
+  if (bf16_w)
+    return dispatch_bwd<float, __nv_bfloat16>(hd, r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv,
+                                              dw, duf, ds0f, ckf, bh, heads, seq, st, dst, gst,
+                                              s);
+  return dispatch_bwd<float, float>(hd, r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, duf,
+                                    ds0f, ckf, bh, heads, seq, st, dst, gst, s);
+}
+
+// Dynamic shared memory of one backward block (bytes) at head dim hd.
+extern "C" int repro_wkv_bwd_smem_bytes(int hd) {
+  switch (hd) {
+    case 8: return BwdShape<8>::kBytes;
+    case 16: return BwdShape<16>::kBytes;
+    case 32: return BwdShape<32>::kBytes;
+    case 64: return BwdShape<64>::kBytes;
+    default: return -1;
+  }
 }

@@ -2,11 +2,11 @@
 
 The port has the dense attention path (llama3_8b, granite_8b,
 minitron_4b, qwen25_32b) and the attention-free RWKV6 path
-(rwkv6_1b6), each with serving (``forward``, ``decode_step``) and the
+(rwkv6_1b6), each with serving (``forward``, ``decode_step``; the
+attention cache in bf16 or, with ``kv_dtype="int8"``, quantized) and the
 training loss (``loss``, with ``remat`` "none" or "full").  MoE, Mamba,
-cross-attention and encoder–decoder layers, the int8 KV cache and the
-"dots" remat policy arrive with their own slices; a config that needs
-them raises here.
+cross-attention and encoder–decoder layers and the "dots" remat policy
+arrive with their own slices; a config that needs them raises here.
 
 The parameters keep the JAX tree's key paths and layouts, so weights
 map 1:1 (:mod:`repro_torch.convert`): ``embed``, ``final_norm``,
@@ -15,8 +15,8 @@ the repeats of period position ``j``; weights are ``[in, out]`` and
 applied as ``x @ W``.  ``jax.lax.scan`` over the stacked layers is a
 Python loop over the repeats.  The parameters do not require grad, so
 serving builds no graph; the trainer turns grad on for what it trains.
-On the card, attention's gradient is the flash backward kernel; the WKV
-kernels have no backward yet and raise under grad.
+On the card, attention's gradient is the flash backward kernel and the
+WKV recurrence's the WKV backward kernel.
 """
 from __future__ import annotations
 
@@ -60,6 +60,17 @@ def _later_slice(cfg: ModelConfig, spec: LayerSpec) -> str | None:
     if spec.moe:
         return "MoE"
     return None
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) absmax int8 quantization over hd: (int8 values,
+    bf16 scales of ``[..., 1]``).  The values are rounded (half to even,
+    as ``jnp.round``) against the f32 scale; only the stored scale is
+    rounded to bf16, as in the JAX function."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.round(xf / scale)
+    return torch.clamp(q, -127, 127).to(torch.int8), scale.to(torch.bfloat16)
 
 
 class _Tree(nn.Module):
@@ -108,12 +119,15 @@ class LM(nn.Module):
     each layer under a loss: "none" saves every layer's activations,
     "full" recomputes each layer in the backward pass (JAX's
     ``jax.checkpoint`` of the layer body); JAX's "dots" policy is not
-    ported.
+    ported.  ``kv_dtype="int8"`` stores the attention decode cache
+    quantized (per-token, per-head absmax scales); any other value keeps
+    it in the cache's dtype, as in JAX.
     """
 
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.bfloat16,
                  attn_chunk: int = 512, max_seq: int = 0,
-                 rwkv_chunk: int = 16, remat: str = "none", seed: int = 0,
+                 rwkv_chunk: int = 16, remat: str = "none",
+                 kv_dtype: str = "bf16", seed: int = 0,
                  device="cuda") -> None:
         super().__init__()
         device = resolve_device(device)
@@ -129,6 +143,7 @@ class LM(nn.Module):
         self.max_seq = max_seq or 8192
         self.rwkv_chunk = rwkv_chunk
         self.remat = remat
+        self.kv_dtype = kv_dtype
 
         p = _lcm(
             cfg.attn_layer_period or 1,
@@ -370,9 +385,11 @@ class LM(nn.Module):
         """Stacked per-position caches mirroring ``blocks``.
 
         Attention positions: ``{"k", "v"}`` of ``[n_rep, bsz, max_len,
-        Hkv, hd]`` in ``dtype``.  RWKV positions: ``{"last_x", "state"}``
-        of ``[n_rep, bsz, d]`` in ``dtype`` and ``[n_rep, bsz, H, hd,
-        hd]`` in f32 (``max_len`` does not enter).
+        Hkv, hd]`` in ``dtype``; with ``kv_dtype="int8"``, int8 ``k``/``v``
+        of that shape and bf16 ``k_scale``/``v_scale`` of ``[..., 1]``
+        (``dtype`` does not apply to them).  RWKV positions:
+        ``{"last_x", "state"}`` of ``[n_rep, bsz, d]`` in ``dtype`` and
+        ``[n_rep, bsz, H, hd, hd]`` in f32 (``max_len`` does not enter).
         """
         cfg = self.cfg
         dtype = dtype or self.param_dtype
@@ -385,17 +402,22 @@ class LM(nn.Module):
                                for name, t in one.items()})
                 continue
             shape = (self.n_rep, bsz, max_len, cfg.n_kv_heads, cfg.hd)
-            caches.append({
-                "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)})
+            zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=self.device)  # noqa: E731
+            if self.kv_dtype == "int8":
+                sshape = shape[:-1] + (1,)
+                caches.append({"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                               "k_scale": zeros(sshape, torch.bfloat16),
+                               "v_scale": zeros(sshape, torch.bfloat16)})
+            else:
+                caches.append({"k": zeros(shape, dtype), "v": zeros(shape, dtype)})
         return caches
 
     def _layer_step(self, p, spec, x, cache, r, cos_sin, pos):
         """One-token layer step. x: [B,1,d]; pos: [B] cursor per row.
 
         Writes this step's entries into repeat ``r`` of the stacked
-        ``cache`` in place: k/v at the cursor, or RWKV's last input and
-        state.
+        ``cache`` in place: k/v at the cursor (quantized, with their
+        scales, in an int8 cache), or RWKV's last input and state.
         """
         cfg = self.cfg
         if spec.kind == "rwkv":
@@ -407,7 +429,6 @@ class LM(nn.Module):
                 cache[name][r].copy_(t)
             x = x + o
             return x + self._ffn(p, x)
-        k_cache, v_cache = cache["k"][r], cache["v"][r]
         b = x.shape[0]
         h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
         q, k, v = self._qkv(p["mixer"], h)
@@ -418,9 +439,19 @@ class LM(nn.Module):
         # this.  The cache may be f32 under a bf16 model (ServeLoop): the
         # value is cast to the cache's dtype, as JAX's update casts it.
         rows = torch.arange(b, device=x.device)
-        slot = pos.clamp(0, k_cache.shape[1] - 1)
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        slot = pos.clamp(0, cache["k"].shape[2] - 1)
+        quantized = "k_scale" in cache     # an int8 cache
+        new = {"k": k, "v": v}
+        if quantized:
+            for name in ("k", "v"):
+                new[name], new[f"{name}_scale"] = _quantize_kv(new[name])
+        for name, val in new.items():
+            cache[name][r][rows, slot] = val[:, 0].to(cache[name].dtype)
+        k_cache, v_cache = cache["k"][r], cache["v"][r]
+        if quantized:
+            # the whole cache dequantized in the model dtype, as JAX does
+            k_cache = k_cache.to(x.dtype) * cache["k_scale"][r].to(x.dtype)
+            v_cache = v_cache.to(x.dtype) * cache["v_scale"][r].to(x.dtype)
         o = attn.decode_attention(q, k_cache, v_cache, pos + 1,
                                   sliding_window=cfg.sliding_window)
         o = o.reshape(b, 1, cfg.n_heads * cfg.hd)

@@ -10,6 +10,10 @@ The bf16 rounding of the kernel family (q, k, v upcast to f32) differs
 from the model family's (q scaled in bf16, p cast to V's dtype), so each
 port is held against its own family only.
 """
+import ctypes
+import os
+import sys
+import tempfile
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -91,6 +95,26 @@ def test_reference_attention_matches_jax(b, s, h, hkv, hd, causal):
     _close(o_t, o_j, 2e-5)
 
 
+def _with_mkl_verbose(fn):
+    """(fn(), what MKL's verbose mode printed during it): the library
+    calls, with their code path, that the port's einsums made.  MKL writes
+    to file descriptor 1 through C's stdio, so that descriptor is sent to a
+    file for the call and C's buffers are flushed before it is restored."""
+    with tempfile.TemporaryFile(mode="w+") as log:
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(log.fileno(), 1)
+        try:
+            with torch.backends.mkl.verbose(torch.backends.mkl.VERBOSE_ON):
+                out = fn()
+        finally:
+            ctypes.CDLL(None).fflush(None)
+            os.dup2(saved, 1)
+            os.close(saved)
+        log.seek(0)
+        return out, log.read()
+
+
 @pytest.mark.parametrize("b,s,h,hkv,hd,chunk,window", [
     (2, 64, 4, 2, 32, 16, 0),      # GQA, several chunks
     (1, 48, 4, 4, 16, 16, 0),      # MHA path
@@ -108,7 +132,9 @@ def test_gqa_attention_matches_jax(b, s, h, hkv, hd, chunk, window):
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), chunk=chunk,
             sliding_window=window))
 
-    o_t, o_j = port(), jax()
+    # MKL's record of the first port call, shown only on a failure
+    o_t, mkl_log = _with_mkl_verbose(port)
+    o_j = jax()
     assert o_t.shape == o_j.shape
     over = ~np.isclose(o_t, o_j, atol=2e-5, rtol=2e-5)
     if over.any():
@@ -124,7 +150,8 @@ def test_gqa_attention_matches_jax(b, s, h, hkv, hd, chunk, window):
                     f"jax {np.array_equal(o_j2, o_j)}; port's second reading "
                     f"within 2e-5 of jax: {np.allclose(o_t2, o_j, atol=2e-5, rtol=2e-5)}, "
                     f"the port's two readings differ by {np.abs(o_t2 - o_t).max()}; "
-                    f"torch threads {torch.get_num_threads()}")
+                    f"torch threads {torch.get_num_threads()}; MKL verbose of the first "
+                    f"port call:\n{mkl_log[:4000]}")
 
 
 @pytest.mark.parametrize("cache_len", [9, np.array([1, 17, 32])])

@@ -73,3 +73,19 @@ def test_default_device_is_cuda_and_fails_loudly_without_it():
     from repro_torch.models import LM
     with pytest.raises(RuntimeError, match="cuda"):
         LM(get_smoke_config("llama3_8b"), param_dtype=torch.float32)
+
+
+def test_build_list_names_every_kernel_entry_point():
+    """``_build.ENTRY_POINTS`` (what chip_smoke.py builds and checks) names
+    every source under csrc/ and every entry point the wrappers launch,
+    the WKV backward's included, and each is defined in its source."""
+    import importlib
+    from repro_torch.kernels import _build
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    for name in _build.SOURCES:
+        wrapper = importlib.import_module(f"repro_torch.kernels.{name}")
+        assert set(wrapper._ENTRY.values()) == set(_build.ENTRY_POINTS[name]), name
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for entry in _build.ENTRY_POINTS[name]:
+            assert f'extern "C" int {entry}(' in src, entry
+    assert "repro_wkv_bwd" in _build.ENTRY_POINTS["rwkv_wkv"]

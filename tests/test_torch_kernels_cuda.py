@@ -16,7 +16,11 @@ WKV out: rtol 1e-5 in f32 and 2**-7 in bf16 on the same grounds, and an
 atol of 2e-4 in both, 20 standard deviations of the f32 difference
 between two summation orders of the 64 products r_i (S_ij + u_i k_i v_j),
 whose partial sums reach about 25 once the state is in steady state.
-The WKV state is f32 in every case: 1e-5.  The flash backward kernel is
+The WKV state is f32 in every case: 1e-5.  The WKV backward kernel is
+held against autograd of the plain version: every gradient within
+``_WKV_BWD_REL`` of its largest magnitude (f32, the limit that
+tests/test_torch_wkv_bwd.py derives from the f64 oracle), plus one bf16
+ulp (rtol 2**-7) where the gradient is bf16.  The flash backward kernel is
 held against autograd of the plain version at the forward's limits (see
 ``_BWD_SHAPES``).  The sequential WKV kernel
 updates it one step at a time; the chunked one sums 16 steps' updates
@@ -304,24 +308,6 @@ def test_flash_tensor_core_backward_rejects_an_unaligned_do(card):
     assert flash_attention_bhsd.variant_launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 64])
-def test_wkv_raises_under_grad_on_the_card(card, s):
-    """The WKV kernels have no backward: a CUDA call that would need one
-    raises instead of returning an output without a grad_fn."""
-    args = list(_wkv_inputs(1, s, 2, 64, "bf16", "model", 1, card))
-    args[0].requires_grad_()
-    before = wkv_bhsd.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        wkv_bhsd(*args)
-    with pytest.raises(RuntimeError, match="no backward"):
-        rwkv_wkv(*(x.transpose(1, 2) for x in args[:4]), args[4])
-    assert wkv_bhsd.launches == before
-    with torch.no_grad():
-        wkv_bhsd(*args)
-    assert wkv_bhsd.launches == before + 1
-
-
 # WKV: (b, s, h, hd) — tests/test_kernels.py::TestRwkvWkv's shapes and a
 # ragged S over the model's heads
 _WKV_SHAPES = [(1, 16, 1, 8), (2, 32, 2, 16), (1, 64, 4, 64), (2, 24, 2, 32),
@@ -577,3 +563,110 @@ def test_wkv_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="16-byte-aligned"):
         wkv_bhsd(wide(rb), wide(kb), wide(vb), wide(wb), ub, s0b)
     assert wkv_bhsd.launches == before     # nothing launched, nothing fell back
+
+
+# The WKV backward: every gradient within REL of its largest |value|, plus
+# one bf16 ulp (rtol 2**-7) where it is bf16.  REL: 25x the f32 spread of
+# autograd of the plain version from the f64 oracle (at most 2.5e-7 for dr,
+# dk, dv, dw, ds0 and 2e-6 for du, a sum over B*S steps), as
+# tests/test_torch_wkv_bwd.py measures and holds the kernel's arithmetic to.
+_WKV_BWD_REL = {"du": 5e-5, "other": 6.25e-6}
+_WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def _wkv_bwd_ratio(name, got, ref):
+    """Largest |got - ref| / (REL max|ref| + rtol |ref|): 1 at the limit."""
+    rel = _WKV_BWD_REL["du" if name == "du" else "other"]
+    rtol = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 0.0
+    got, ref = got.float(), ref.float()
+    scale = rel * float(ref.abs().max().clamp(min=1e-30))
+    return float(((got - ref).abs() / (scale + rtol * ref.abs())).max())
+
+
+def _wkv_grads(fn, args, dout, dsT):
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    out, sT = fn(*leaves)
+    heads = [out] + ([sT] if dsT is not None else [])
+    grads = torch.autograd.grad(heads, leaves, [dout] + ([dsT] if dsT is not None else []))
+    return dict(zip(_WKV_GRADS, grads))
+
+
+def _dropped_step(dout):
+    """dout with one late step zeroed: a backward that loses one step."""
+    bad = dout.clone()
+    bad[:, :, 3 * dout.shape[2] // 4] = 0
+    return bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd", _WKV_SHAPES + [(1, 4096, 4, 64)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "bf16w"])
+@pytest.mark.parametrize("w_law", ["uniform", "model"])
+def test_wkv_backward_matches_autograd_of_plain(card, b, s, h, hd, dtype, w_law):
+    """dr, dk, dv, dw, du and ds0 through the Function (forward kernel,
+    then the backward kernel) against autograd of the plain version, with
+    nonzero s0 and dsT; a dropped dout step is rejected at S >= 256; two
+    calls give identical bits."""
+    args = _wkv_inputs(b, s, h, hd, dtype, w_law, b * s + hd + 1, card)
+    gen = torch.Generator(device=card).manual_seed(s)
+    dout = torch.randn(args[0].shape, generator=gen, device=card).to(args[0].dtype)
+    dsT = torch.randn(args[5].shape, generator=gen, device=card)
+    total, counts = _counts()
+    got = _wkv_grads(wkv_bhsd, args, dout, dsT)
+    torch.cuda.synchronize()
+    fwd = wkvk.kernel_variant(args[0].dtype, args[3].dtype, hd, s)
+    assert wkv_bhsd.launches == total + 2
+    assert wkv_bhsd.variant_launches["backward"] == counts["backward"] + 1
+    assert wkv_bhsd.variant_launches[fwd] == counts[fwd] + 1
+    ref = _wkv_grads(wkv_bhsd_plain, args, dout, dsT)
+    for name in _WKV_GRADS:
+        assert got[name].dtype == ref[name].dtype and got[name].shape == ref[name].shape
+        assert _wkv_bwd_ratio(name, got[name], ref[name]) <= 1, name
+    again = _wkv_grads(wkv_bhsd, args, dout, dsT)
+    assert all(torch.equal(again[n], got[n]) for n in _WKV_GRADS)
+    if s >= 256:
+        bad = _wkv_grads(wkv_bhsd_plain, args, _dropped_step(dout), dsT)
+        assert max(_wkv_bwd_ratio(n, bad[n], ref[n]) for n in _WKV_GRADS) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 1000])
+def test_wkv_backward_in_model_layout_without_dsT(card, s):
+    """ops.rwkv_wkv's [B,S,H,hd] views with sT dropped (the model's use):
+    no dsT reaches the kernel, and the gradients land in the model's
+    layout.  A dout view without a unit hd stride is copied once, counted."""
+    r, k, v, w, u, _ = _wkv_inputs(2, s, 4, 64, "bf16", "model", s, card)
+    tr = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    leaves = [tr(x).requires_grad_() for x in (r, k, v, w)] + [u.requires_grad_()]
+    out, _ = rwkv_wkv(*leaves)
+    dout = torch.randn(out.shape[::-1], device=card).to(out.dtype).permute(3, 2, 1, 0)
+    assert dout.stride(3) != 1
+    copies = wkv_bhsd.dout_copies
+    got = torch.autograd.grad(out, leaves, dout)
+    assert wkv_bhsd.dout_copies == copies + 1
+    plain = [x.detach().clone().requires_grad_() for x in leaves]
+    ref_out = wkv_bhsd_plain(*(x.transpose(1, 2) for x in plain[:4]), plain[4],
+                             torch.zeros(2, 4, 64, 64, device=card))[0].transpose(1, 2)
+    # at S = 1 with sT dropped, w reaches nothing: autograd gives no dw,
+    # the kernel zeros
+    ref = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        plain, torch.autograd.grad(ref_out, plain, dout, allow_unused=True))]
+    for name, g, rr in zip(("dr", "dk", "dv", "dw", "du"), got, ref):
+        assert g.shape == rr.shape and g.dtype == rr.dtype
+        assert _wkv_bwd_ratio(name, g, rr) <= 1, name
+    assert got[0].is_contiguous()        # the [B,S,H,hd] layout of r
+
+
+@pytest.mark.cuda
+def test_wkv_backward_returns_only_what_is_asked(card):
+    """Inputs that need no grad get none; a CUDA call under no_grad
+    launches the forward kernel alone."""
+    r, k, v, w, u, s0 = _wkv_inputs(1, 64, 2, 32, "f32", "model", 5, card)
+    k.requires_grad_()
+    out, _ = wkv_bhsd(r, k, v, w, u, s0)
+    (dk,) = torch.autograd.grad(out.sum(), [k])
+    assert dk.shape == k.shape and r.grad is None
+    total = wkv_bhsd.launches
+    with torch.no_grad():
+        out, _ = wkv_bhsd(r, k, v, w, u, s0)
+    assert out.grad_fn is None and wkv_bhsd.launches == total + 1
