@@ -14,9 +14,12 @@ a non-zero exit if it fails:
                instantiation of the tensor-core flash forward and of both
                kernels of the tensor-core flash backward, and HMMA
                (mma.sync) and LDGSTS (cp.async) in every instantiation of
-               the chunked WKV kernel; every library must export the entry
-               points ``_build.ENTRY_POINTS`` names (the WKV backward's
-               ``repro_wkv_bwd`` among them)
+               the chunked WKV kernel and of the chunk-parallel WKV
+               backward's chain kernel; no local memory (LDL/STL, ptxas
+               spills) in either WKV backward; every library must export
+               the entry points ``_build.ENTRY_POINTS`` names (the WKV
+               backwards' ``repro_wkv_bwd`` and ``repro_wkv_bwd_chunked``
+               among them)
 2. kernel      ``flash_attention_bhsd`` vs its plain version on the card, f32
                and bf16, causal both ways, at the test shapes, a ragged S=1000
                and every shape the later phases give it, each row naming the
@@ -74,17 +77,22 @@ a non-zero exit if it fails:
                plain version and SDPA's backward (the yardstick only),
                the five-product bound and the bound of the products the
                tensor-core kernel runs (``WGMMA_BWD_PRODUCTS``)
-8b. wkv_backward  the WKV backward kernel (through ``wkv_bhsd``'s
-               autograd Function) vs autograd of the plain version: dr, dk,
-               dv, dw, du and ds0, f32 and bf16 r/k/v with f32 w, two laws
-               of w, nonzero s0 and dsT, at the test shapes, a ragged
-               S=1000, the training shape and what phases 9b and 11 give
-               it (model layout); each row names the forward kernel that
-               served it; at S >= 256 a planted fault (one dout step
-               dropped in the plain run); every call run twice for
-               identical bits; times at the training shape (the kernel,
-               the forward kernel of the same call, the backward of
-               autograd of the plain version) and the bound
+8b. wkv_backward  both WKV backward kernels vs autograd of the plain
+               version: dr, dk, dv, dw, du and ds0, f32 and bf16 r/k/v with
+               f32 w, two laws of w, nonzero s0 and dsT, at the test
+               shapes, S around one chunk, a ragged S=1000, the training
+               shape and what phases 9b and 11 give it (model layout).
+               Each row names the forward and the backward kernel the
+               wrapper (``wkv_bhsd``'s autograd Function) launched; where
+               that is the chunk-parallel ``backward_chunked``, the
+               ``backward`` kernel runs on the same inputs too, held to the
+               same limit; at S >= 256 a planted fault (one dout step
+               dropped in the plain run); every kernel call run twice for
+               identical bits; times at the training shape: both backwards
+               on the same inputs in turns (old, new, new, old), the
+               chunk-parallel one's two kernels (chains, chunks) from the
+               profiler, the forward kernel of the same call, the backward
+               of autograd of the plain version, and the bound
 9. gradients   full width, 4 layers, f32 (TF32 off): ``LM.loss`` and every
                gradient leaf through the kernels vs the same with
                ``gqa_attention`` routed to the chunked torch scan
@@ -105,14 +113,16 @@ a non-zero exit if it fails:
                parameters), the same step, timing, profile (with the WKV
                kernels' own device time), ``remat="full"`` step and
                falling-loss check as phase 10: 24 chunked forward and 24
-               backward WKV launches a step, no flash launch
+               ``backward_chunked`` WKV launches a step (none of
+               ``backward``), no flash launch
 11. trainer    the smoke ``llama3_8b`` ``Trainer.run`` with async
                checkpoints, then a ``FailureInjector`` fault under
                ``run_with_restarts``: it resumes from the last checkpoint,
                and its losses equal the unfaulted run's bit for bit; then
                ``launch.train.main(["--arch", "rwkv6_1b6", ...])`` on the
                card (smoke config, f32: the sequential WKV kernel and the
-               backward kernel)
+               ``backward`` kernel: the path whose launches the kernels
+               line counts for it)
 12. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel, and the final ``{"ok": true, "device": ...}``.
 
@@ -125,6 +135,7 @@ from __future__ import annotations
 import gc
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -252,7 +263,8 @@ WKV_DECODE = (4, 1, 32, 64)         # one decode step of batch 4
 WKV_TRAIN = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], 32, 64)    # one rwkv6_1b6 layer of phase 10b
 RWKV_TRAIN_MAIN = ("--arch", "rwkv6_1b6")               # launch.train.main in phase 11
 WKV_BWD_SHAPES = [(1, 16, 1, 8, False), (2, 32, 2, 16, False), (1, 64, 4, 64, False),
-                  (2, 24, 2, 32, False), (1, 1000, 32, 64, False), (*WKV_TRAIN, True),
+                  (2, 24, 2, 32, False), (1, 15, 4, 64, False), (2, 17, 4, 64, False),
+                  (1, 1000, 32, 64, False), (*WKV_TRAIN, True),
                   (*GRAD_CHECK, 32, 64, True),          # phase 9b (f32, 4 layers)
                   (4, 32, 2, 32, True)]                 # launch.train.main's smoke config
 # Limit of the WKV backward against autograd of the plain version: every
@@ -387,7 +399,11 @@ def phase_build() -> None:
     emit("build", kernel="rwkv_wkv", chunked_dynamic_smem_bytes={
         f"{'bf16' if bw else 'f32'}_w": lib.repro_wkv_chunked_smem_bytes(bw) for bw in (0, 1)},
          backward_dynamic_smem_bytes={hd: lib.repro_wkv_bwd_smem_bytes(hd)
-                                      for hd in wkv.KERNEL_HEAD_DIMS})
+                                      for hd in wkv.KERNEL_HEAD_DIMS},
+         backward_chunked_dynamic_smem_bytes={
+             f"{'bf16' if bw else 'f32'}_w": {"chains": lib.repro_wkv_bwd_chunked_smem_bytes(bw, 0),
+                                             "chunks": lib.repro_wkv_bwd_chunked_smem_bytes(bw, 1)}
+             for bw in (0, 1)})
     sass = sass_instructions("rwkv_wkv", "wkv_fwd_chunked_kernel",
                              ("HMMA", "LDSM", "LDGSTS", "HGMMA", "UTMALDG", "LDL", "STL"))
     emit("build", kernel="rwkv_wkv", sass=sass)
@@ -399,6 +415,36 @@ def phase_build() -> None:
     emit("build", kernel="rwkv_wkv", backward_sass=sass)
     check(len(sass) == 16 and all(c["LDL"] == c["STL"] == 0 for c in sass.values()),
           f"the WKV backward kernel uses local memory: {sass}")
+    # the chunk-parallel backward: its chains on the tensor cores, cp.async
+    # loads in both kernels, nothing in local memory
+    for kernel, ops in (("wkv_bwd_chain_kernel", ("HMMA", "LDSM", "LDGSTS", "LDL", "STL")),
+                        ("wkv_bwd_chunk_kernel", ("LDGSTS", "SHFL", "LDL", "STL"))):
+        sass = sass_instructions("rwkv_wkv", kernel, ops)
+        emit("build", kernel="rwkv_wkv", backward_chunked_sass=sass)
+        check(len(sass) == 2 and all(c["LDL"] == c["STL"] == 0 and c["LDGSTS"] > 0 and
+                                     c.get("HMMA", 1) > 0 for c in sass.values()),
+              f"{kernel} lacks HMMA or LDGSTS, or uses local memory: {sass}")
+    spills = ptxas_spills(logs[KERNEL_SOURCES.index("rwkv_wkv")], "wkv_bwd_")
+    emit("build", kernel="rwkv_wkv", backward_ptxas=spills)
+    check(all(e["spill_bytes"] == 0 for e in spills.values()),
+          f"ptxas spills in a WKV backward kernel: {spills}")
+
+
+def ptxas_spills(log: str, kernel: str) -> dict:
+    """Registers and spill bytes ptxas reported for each function of a
+    build log whose name contains ``kernel`` (empty if nothing was built)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+            if name:
+                out[name] = {}
+        elif name and "spill stores" in line:
+            out[name]["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def sass_instructions(source: str, kernel: str, opcodes) -> dict:
@@ -598,6 +644,33 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     raise RuntimeError(f"profiler saw {seen} launches of {kernel} in three tries, want {reps}")
 
 
+def kernel_split_ms(fn, reps: int, kernels) -> dict:
+    """Device time per launch of each kernel named in ``kernels`` (a name
+    part) over ``reps`` calls of ``fn`` that launch each once, from one
+    profiler window, divided by the launches the profiler recorded: it has
+    been seen to drop the first launch of a window.  Keys
+    ``<name>_ms`` and ``<name>_seen``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in kernels:
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
+                us = getattr(e, "self_device_time_total", None)
+                total += e.self_cuda_time_total if us is None else us
+                count += e.count
+        check(reps // 2 <= count <= reps, f"the profiler saw {count} launches of {name}, "
+                                          f"want {reps}")
+        out[f"{name}_ms"], out[f"{name}_seen"] = total / 1e3 / count, count
+    return out
+
+
 _WKV_KERNEL = {"chunked": "wkv_fwd_chunked_kernel", "sequential": "wkv_fwd_kernel"}
 
 
@@ -790,10 +863,12 @@ def wkv_bwd_bound(b, h, s, hd, io_bytes, w_bytes) -> tuple[float, str, int, int]
 
 
 def phase_wkv_backward() -> tuple[dict, list]:
-    """The WKV backward kernel through ``wkv_bhsd``'s autograd Function vs
-    autograd of the plain version at every shape, dtype and law of w, with
-    nonzero s0 and dsT; each call run twice for identical bits; a planted
-    fault at S >= 256; times at the training shape."""
+    """Both WKV backward kernels vs autograd of the plain version at every
+    shape, dtype and law of w, with nonzero s0 and dsT: the one the wrapper
+    picks through ``wkv_bhsd``'s autograd Function, and, where that is
+    ``backward_chunked``, the ``backward`` kernel on the same inputs; each
+    kernel call run twice for identical bits; a planted fault at S >= 256;
+    times at the training shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     timed, rows = {}, []
     for b, s, h, hd, model_layout in WKV_BWD_SHAPES:
@@ -811,22 +886,29 @@ def phase_wkv_backward() -> tuple[dict, list]:
                                 if c != before[n])
                 ref = wkv_grads(wkv.wkv_bhsd_plain, args, dout, dsT)
                 torch.cuda.synchronize()
-                ratios = {g: wkv_bwd_ratio(g, got[g], ref[g]) for g in WKV_GRADS}
                 fwd = wkv.kernel_variant(args[0].dtype, args[3].dtype, hd, s)
+                bwd = wkv.backward_variant(args[0].dtype, args[3].dtype, hd, s)
                 row = dict(shape=[b, s, h, hd], dtype=dtype, w_law=w_law,
                            layout="model [B,S,H,hd]" if model_layout else "[B,H,S,hd]",
-                           forward_kernel=fwd, launched=served,
-                           max_abs_err_by_grad={g: float((got[g].float() - ref[g].float())
-                                                         .abs().max()) for g in WKV_GRADS},
-                           limit_ratio_by_grad=ratios, limit_ratio=max(ratios.values()))
-                row["max_abs_err"] = max(row["max_abs_err_by_grad"].values())
-                row["ok"] = row["limit_ratio"] <= 1
-                check(served == sorted(["backward", fwd]),
+                           forward_kernel=fwd, backward_kernel=bwd, launched=served,
+                           **wkv_bwd_errors(got, ref))
+                check(served == sorted([bwd, fwd]),
                       f"launch counts show {served} serving {row}")
                 again = wkv_grads(wkv.wkv_bhsd, args, dout, dsT)
                 row["two_calls_bit_equal"] = all(torch.equal(again[g], got[g])
                                                  for g in WKV_GRADS)
                 del again
+                if bwd == "backward_chunked":      # the other kernel, same inputs
+                    def old_call():
+                        return dict(zip(WKV_GRADS, wkv.launch_backward(
+                            "backward", *args, dout, dsT)))
+                    old = old_call()
+                    row["other_kernel"] = "backward"
+                    row.update({f"other_{key}": val
+                                for key, val in wkv_bwd_errors(old, ref).items()})
+                    row["other_two_calls_bit_equal"] = all(
+                        torch.equal(x, old[g]) for g, x in old_call().items())
+                    del old
                 if s >= 256:
                     bad_dout = dout.clone()
                     bad_dout[:, :, 3 * s // 4] = 0
@@ -840,28 +922,48 @@ def phase_wkv_backward() -> tuple[dict, list]:
                     timed[dtype] = row
                 emit("wkv_backward", **row)
                 rows.append(row)
-                check(row["ok"], f"the WKV backward disagrees with autograd of the plain "
-                                 f"version: {row}")
+                check(row["ok"] and row.get("other_ok", True),
+                      f"a WKV backward disagrees with autograd of the plain version: {row}")
                 check(row.get("fault_rejected", True),
                       f"the limit lets a dropped dout step through: {row}")
-                check(row["two_calls_bit_equal"], f"two identical WKV backward calls "
-                                                  f"differ: {row}")
+                check(row["two_calls_bit_equal"] and row.get("other_two_calls_bit_equal", True),
+                      f"two identical WKV backward calls differ: {row}")
                 del args, got, ref, dout, dsT
     return timed, rows
 
 
+def wkv_bwd_errors(got: dict, ref: dict) -> dict:
+    """Each gradient's largest error and limit ratio (:func:`wkv_bwd_ratio`)."""
+    ratios = {g: wkv_bwd_ratio(g, got[g], ref[g]) for g in WKV_GRADS}
+    errs = {g: float((got[g].float() - ref[g].float()).abs().max()) for g in WKV_GRADS}
+    return dict(max_abs_err_by_grad=errs, max_abs_err=max(errs.values()),
+                limit_ratio_by_grad=ratios, limit_ratio=max(ratios.values()),
+                ok=max(ratios.values()) <= 1)
+
+
 def wkv_bwd_times(args, dout) -> dict:
-    """The backward kernel alone (no dsT, as the model calls it), the
+    """Both backward kernels alone (no dsT, as the model calls them) on the
+    same inputs, in turns (old, new, new, old; each the mean of its
+    launches), the chunk-parallel one's two kernels from the profiler, the
     forward kernel that serves the same call, the backward of autograd of
-    the plain version (a yardstick: it repeats the kernel's function),
-    and the bound from this shape's work."""
+    the plain version (a yardstick: it repeats the kernel's function), and
+    the bound from this shape's work."""
     r, k, v, w, u, s0 = args
     b, h, s, hd = r.shape
     uf = u.float()
-    row = dict(kernel_ms=time_ms(lambda: wkv.wkv_bhsd_bwd(r, k, v, w, u, s0, dout), 5),
+    new = lambda: wkv.wkv_bhsd_bwd(r, k, v, w, u, s0, dout)             # noqa: E731
+    old = lambda: wkv.launch_backward("backward", r, k, v, w, u, s0, dout)  # noqa: E731
+    turns = [("backward", time_ms(old, 5)), ("backward_chunked", time_ms(new, 20)),
+             ("backward_chunked", time_ms(new, 20)), ("backward", time_ms(old, 5))]
+    by_kernel = {n: [t for m, t in turns if m == n] for n in ("backward", "backward_chunked")}
+    row = dict(kernel=wkv.backward_variant(r.dtype, w.dtype, hd, s),
+               kernel_ms=statistics.mean(by_kernel["backward_chunked"]),
+               other_kernel_ms=statistics.mean(by_kernel["backward"]), turns_ms=turns,
+               **kernel_split_ms(new, 10, ("wkv_bwd_chain_kernel", "wkv_bwd_chunk_kernel")),
                forward_kernel_ms=time_ms(
                    lambda: wkv.launch(wkv.kernel_variant(r.dtype, w.dtype, hd, s),
                                       r, k, v, w, uf, s0), 10))
+    row["old_over_new"] = row["other_kernel_ms"] / row["kernel_ms"]
     leaves = [t.detach().clone().requires_grad_() for t in args]
     out, _ = wkv.wkv_bhsd_plain(*leaves)
     row["plain_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, dout,
@@ -874,18 +976,28 @@ def wkv_bwd_times(args, dout) -> dict:
                bytes_bound_ms=nbytes / PEAK_BYTES * 1e3,
                achieved_tflops=ops / row["kernel_ms"] / 1e9,
                bound_share=row["bound_ms"] / row["kernel_ms"],
-               # what the kernel runs beyond the function's work: S twice (the
-               # recompute from checkpoints) and G twice (rows and columns)
-               executed_ops_per_step="about 20 hd^2",
-               checkpoint_mbytes=b * h * ((s - 1) // wkv.BWD_CHUNK) * hd * hd * 4 / 1e6)
+               other_bound_share=row["bound_ms"] / row["other_kernel_ms"],
+               # what the chunk-parallel kernel moves beyond the function's
+               # bytes: the state and gradient before and after every chunk,
+               # written once and read once
+               checkpoint_mbytes=2 * b * h * -(-s // wkv.BWD_CHUNK) * hd * hd * 4 / 1e6)
     return row
 
 
-def wkv_bwd_row(timed_row: dict, checks: list, launches: int, path: str) -> dict:
-    """The kernels-line entry of the WKV backward kernel: errors over every
-    phase-8b row, times at the training shape."""
-    return {
-        "name": "wkv_bhsd_bwd[backward]",
+def wkv_bwd_row(timed_row: dict, checks: list, variant: str, launches: int, path: str) -> dict:
+    """The kernels-line entry of one WKV backward kernel: errors over every
+    phase-8b row it computed (launched by the wrapper or beside the other
+    kernel), times at the training shape (bf16, where the wrapper picks
+    ``backward_chunked``; ``backward`` runs the same inputs)."""
+    errs = [(r["dtype"], r["max_abs_err"], r["limit_ratio"], r["two_calls_bit_equal"])
+            for r in checks if r["backward_kernel"] == variant]
+    errs += [(r["dtype"], r["other_max_abs_err"], r["other_limit_ratio"],
+              r["other_two_calls_bit_equal"]) for r in checks
+             if r.get("other_kernel") == variant]
+    mine = [r for r in checks if variant in (r["backward_kernel"], r.get("other_kernel"))]
+    chunked = variant == "backward_chunked"
+    row = {
+        "name": f"wkv_bhsd_bwd[{variant}]",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv_wkv.cu",
         "replaces": "src/repro/kernels/rwkv_wkv.py:61",
@@ -894,28 +1006,37 @@ def wkv_bwd_row(timed_row: dict, checks: list, launches: int, path: str) -> dict
                           "(src/repro/models/rwkv.py:76 wkv_chunked)"),
         "launches": launches,
         "launches_counted_on": path,
-        "serves": "every WKV call under grad: f32 or bf16 r/k/v, f32 or bf16 w, hd 8-64",
-        "max_abs_err": max(r["max_abs_err"] for r in checks),
-        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in checks if r["dtype"] == d)
-                                 for d in ("f32", "bf16")},
+        "serves": ("every WKV call under grad whose forward is the chunked kernel: bf16 r/k/v "
+                   f"at hd 64, S >= {wkv.CHUNKED_MIN_SEQ}" if chunked else
+                   "the other WKV calls under grad: f32 r/k/v, hd 8-32, bf16 at S < "
+                   f"{wkv.CHUNKED_MIN_SEQ}"),
+        "max_abs_err": max(e[1] for e in errs),
+        "max_abs_err_by_dtype": {d: max(e[1] for e in errs if e[0] == d)
+                                 for d in ("f32", "bf16") if any(e[0] == d for e in errs)},
         "tol": {"rel_of_max": WKV_BWD_REL, "rtol_bf16": 2.0 ** -7},
-        "limit_ratio": max(r["limit_ratio"] for r in checks),
-        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in checks
+        "limit_ratio": max(e[2] for e in errs),
+        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in mine
                                      if "fault_limit_ratio" in r),
-        "two_calls_bit_equal": all(r["two_calls_bit_equal"] for r in checks),
-        "checked_shapes": sorted({tuple(r["shape"]) for r in checks}),
-        "ms": timed_row["kernel_ms"],
+        "two_calls_bit_equal": all(e[3] for e in errs),
+        "checked_shapes": sorted({tuple(r["shape"]) for r in mine}),
+        "ms": timed_row["kernel_ms" if chunked else "other_kernel_ms"],
         "plain_ms": timed_row["plain_ms"],
         "bound_ms": timed_row["bound_ms"],
         "bound_by": timed_row["bound_by"],
         "library_ms": None,
         "bytes_bound_ms": timed_row["bytes_bound_ms"],
-        "achieved_tflops": timed_row["achieved_tflops"],
-        "bound_share": timed_row["bound_share"],
+        "bound_share": timed_row["bound_share" if chunked else "other_bound_share"],
+        "old_over_new": timed_row["old_over_new"],
+        "turns_ms": timed_row["turns_ms"],
         "forward_kernel_ms": timed_row["forward_kernel_ms"],
         "shape": timed_row["shape"],
         "dtype": "bf16 r/k/v/dout and dr/dk/dv, f32 w and dw",
     }
+    if chunked:
+        row.update(chain_kernel_ms=timed_row["wkv_bwd_chain_kernel_ms"],
+                   chunk_kernel_ms=timed_row["wkv_bwd_chunk_kernel_ms"],
+                   checkpoint_mbytes=timed_row["checkpoint_mbytes"])
+    return row
 
 
 def phase_kv_int8(model) -> dict:
@@ -1696,18 +1817,19 @@ def phase_train(cfg_full) -> dict:
 
 def phase_rwkv_train(cfg) -> dict:
     """rwkv6_1b6 at full width and full depth (:func:`train_cell`): 24
-    chunked WKV forwards and 24 WKV backwards a step, no dout copied, no
-    flash kernel; the WKV kernels' own device time in the profile."""
+    chunked WKV forwards and 24 chunk-parallel WKV backwards a step (none
+    of the ``backward`` kernel), no dout copied, no flash kernel; the WKV
+    kernels' own device time in the profile."""
     row = train_cell(cfg, lambda: {**wkv.wkv_bhsd.variant_launches,
                                    "dout_copies": wkv.wkv_bhsd.dout_copies,
                                    "flash": fa.flash_attention_bhsd.launches}, "wkv_")
     emit("rwkv_train", **row)
     check_training(row)
     n = cfg.n_layers
-    want = {**wkv_counts(chunked=n * TRAIN_STEPS, backward=n * TRAIN_STEPS),
+    want = {**wkv_counts(chunked=n * TRAIN_STEPS, backward_chunked=n * TRAIN_STEPS),
             "dout_copies": 0, "flash": 0}
     check(row["launches"] == want, f"RWKV training launches {row['launches']}, want {want}")
-    want = {**wkv_counts(chunked=2 * n, backward=n), "dout_copies": 0, "flash": 0}
+    want = {**wkv_counts(chunked=2 * n, backward_chunked=n), "dout_copies": 0, "flash": 0}
     check(row["remat_full"]["launches"] == want,
           f"remat='full' RWKV step launches {row['remat_full']['launches']}")
     return row
@@ -1856,7 +1978,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rwkv_train = phase_rwkv_train(rwkv_cfg)
     torch.cuda.empty_cache()
-    phase_trainer()
+    trainer = phase_trainer()
 
     kernels = [flash_row(timed["bf16"], checks, "wgmma", launches,
                          "every llama3_8b prefill (serve.main --production)"),
@@ -1876,10 +1998,14 @@ def main() -> int:
                              f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)"),
                 backward_row(bwd_timed["f32"], bwd_checks, "backward", grad_launches,
                              "the 4-layer f32 loss gradient of phase 9"),
-                wkv_bwd_row(wkv_bwd_timed["bf16"], wkv_bwd_checks,
-                            rwkv_train["launches"]["backward"],
+                wkv_bwd_row(wkv_bwd_timed["bf16"], wkv_bwd_checks, "backward_chunked",
+                            rwkv_train["launches"]["backward_chunked"],
                             f"every full-width rwkv6_1b6 train step ({rwkv_cfg.n_layers} "
-                            f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)")]
+                            f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)"),
+                wkv_bwd_row(wkv_bwd_timed["bf16"], wkv_bwd_checks, "backward",
+                            trainer["rwkv_main"]["wkv_launches"]["backward"],
+                            "launch.train.main --arch rwkv6_1b6 (smoke config, f32) of "
+                            "phase 11")]
     emit("done", seconds=time.perf_counter() - t_start, gc_collections=len(GC_PAUSES),
          gc_full_collections=sum(g == 2 for g, _ in GC_PAUSES),
          gc_seconds=sum(p for _, p in GC_PAUSES),

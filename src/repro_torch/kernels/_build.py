@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 ENTRY_POINTS = {
     "flash_attention": ("repro_flash_attention_fwd", "repro_flash_attention_fwd_wgmma",
                         "repro_flash_attention_bwd", "repro_flash_attention_bwd_wgmma"),
-    "rwkv_wkv": ("repro_wkv_fwd", "repro_wkv_fwd_chunked", "repro_wkv_bwd"),
+    "rwkv_wkv": ("repro_wkv_fwd", "repro_wkv_fwd_chunked", "repro_wkv_bwd",
+                 "repro_wkv_bwd_chunked"),
 }
 SOURCES = tuple(ENTRY_POINTS)
 

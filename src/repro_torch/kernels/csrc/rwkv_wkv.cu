@@ -168,7 +168,46 @@
 //   take 0.055 ms at 3.35 TB/s, so it is bound by operations.  The kernel
 //   runs S twice (the recompute) and G twice (rows and columns), and each
 //   block is one warp walking a chain of S steps: latency, not throughput,
-//   sets its time.
+//   sets its time.  It serves f32 r/k/v, hd 8-32 and S < 16.
+//
+// The chunk-parallel backward (wkv_bwd_chain_kernel + wkv_bwd_chunk_kernel,
+// repro_wkv_bwd_chunked): the same function for the calls the chunked
+// forward takes (bf16 r/k/v at hd 64, f32 or bf16 w), every rwkv6_1b6
+// training layer.  Its bound is the one above: 0.0962 ms of operations,
+// 0.0554 ms of bytes at the training shape.  The "backward" kernel took
+// 6.86 ms there (71x the bound): 128 blocks of one warp (one of an SM's four
+// schedulers issues, stalling on every shared-memory load and FMA chain),
+// each walking all 4096 steps three times in series, nothing on the tensor
+// cores.  Here the only serial chains are S/16 chunks long.  With C = 16,
+// P_t and E_b the exclusive products of w from a chunk's start and to its
+// end, and P_end the whole chunk's:
+// * Chains (wkv_bwd_chain_kernel, one launch for both): S_{c+1} =
+//   diag(P_end) S_c + sum_b (k_b E_b) v_b^T forward and, with Ghat_c =
+//   dL/dS after chunk c, Ghat_{c-1} = diag(P_end) Ghat_c + sum_t (r_t P_t)
+//   dout_t^T backward from dsT, ending at ds0.  Both are the chunked
+//   forward's state update: the same device functions, f32 a*F in three
+//   bf16 parts against exact bf16 v or dout, f32 accumulators, decays as
+//   products of w.  A block is one (b, h, 16 value columns, chain), so B=1
+//   H=32 gives 256 blocks; each writes the value before every chunk to f32
+//   scratch (2 x 134 MB at the training shape).
+// * Chunks (wkv_bwd_chunk_kernel): a block of 16 warps walks 8 consecutive
+//   chunks of one (b, h), the next chunk's r/k/v/w/dout tiles and its
+//   S_c and Ghat_c entries in flight by cp.async.  Thread (row i, column
+//   group) holds 8 entries of S and of G in registers.  S runs forward from
+//   S_c to keep the states after steps 4, 8 and 12 (shared memory), then
+//   each 4-step sub-chunk from the last recomputes its states into
+//   registers and G walks back from Ghat_c: dr, dk, dw = rowsum(G_{t+1} *
+//   S_t) (direct, not by suffix sums) and dv's partial products.  Row sums
+//   are butterflies over the row's 8 lanes; dv's column sums are
+//   butterflies over a warp's 4 rows, then the 16 warps' partials summed in
+//   a fixed order in shared memory.  du is one partial per chunk, summed by
+//   the wrapper.  No atomics: two calls give identical bits.
+// * Steps past S read r/k/v/dout as 0 and w as 1, as in the forward.
+// * Measured (PERF.md): the chunk kernel takes about three quarters of the
+//   time.  At 128 registers (16 warps an SM) it is held by the latency of
+//   its per-step chains (loads, dots, shuffles), not by issue slots or
+//   shared-memory bandwidth: halving its barriers did not move it, and
+//   neither did preparing the chains' chunks on four warps instead of two.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1146,4 +1185,642 @@ extern "C" int repro_wkv_bwd_smem_bytes(int hd) {
     case 64: return BwdShape<64>::kBytes;
     default: return -1;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The chunk-parallel backward (bf16 r/k/v, hd 64): two chains, then chunks.
+namespace {
+
+// The chains.  One block per (b, h, kChainNV value columns, chain): the
+// state chain S_{c+1} = diag(P_end) S_c + sum_b (k_b E_b) v_b^T forward over
+// the chunks, or the gradient chain G_c' = diag(P_end) G_c + sum_t (r_t P_t)
+// dout_t^T backward over them, each chunk's value written to a checkpoint
+// before the chunk is applied.  The forward kernel's state update, with
+// (a, F, b) = (k, E, v) or (r, P, dout): two preparation warps (one key a
+// thread: the running product of w and a*F in three bf16 parts), a
+// producer warp (cp.async ring) and one consumer warp (16 value columns in
+// mma accumulators).
+constexpr int kChainPrep = 64;                     // one key a thread
+constexpr int kChainNV = 16;                       // value columns a block: one consumer warp
+constexpr int kChainSlices = kHD / kChainNV;       // 4 blocks a (b, h) and chain
+constexpr int kChainThreads = kChainPrep + 32 + 32;
+constexpr int kChainStages = 6;                    // load ring: chunks p+1 .. p+5 in flight
+
+template <typename TW>
+struct ChainSmem {                                 // byte offsets from a 16-aligned base
+  static constexpr int kBLd = kChainNV + 8;        // padded bf16 row of the b slice
+  // one load stage: a [C][HD] bf16, w [C][HD] TW, b [C][kBLd] bf16
+  static constexpr int kA = 0;
+  static constexpr int kW = kA + kC * kHD * 2;
+  static constexpr int kB = kW + kC * kHD * static_cast<int>(sizeof(TW));
+  static constexpr int kStage = kB + kC * kBLd * 2;
+  // one preparation buffer: a*F in 3 parts, P_end
+  static constexpr int kAF = 0;
+  static constexpr int kDec = kAF + 3 * kC * kLd * 2;
+  static constexpr int kPrep = kDec + kHD * 4;
+  static constexpr int kLoads = 0;
+  static constexpr int kPreps = kLoads + kChainStages * kStage;
+  static constexpr int kBytes = kPreps + 2 * kPrep;
+};
+
+__device__ __forceinline__ void chain_prep_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kChainPrep) : "memory");
+}
+__device__ __forceinline__ void chain_loads_arrive() {
+  asm volatile("bar.arrive 2, %0;\n" ::"n"(kChainPrep + 32) : "memory");
+}
+__device__ __forceinline__ void chain_loads_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kChainPrep + 32) : "memory");
+}
+
+// One chain of one block: kGrad false is the state chain (a = k, b = v,
+// from x0 = s0, first chunk first), true the gradient chain (a = r, b =
+// dout, from x0 = dsT or zero, last chunk first; its end value, ds0, goes
+// to xT).  ck receives [B*H][n_chunks][HD][HD] f32, the value before each
+// chunk is applied.
+template <typename TW, bool kGrad>
+__device__ __forceinline__ void chain_body(unsigned char* smem, const __nv_bfloat16* __restrict__ a,
+                                           const TW* __restrict__ w,
+                                           const __nv_bfloat16* __restrict__ bm,
+                                           const float* __restrict__ x0, float* __restrict__ ck,
+                                           float* __restrict__ xT, int heads, int seq, Strides st,
+                                           Strides bst, int blk) {
+  using L = ChainSmem<TW>;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const bool prep = tid < kChainPrep;
+  const bool producer = warp == kChainPrep / 32;
+  const int bh = blk / kChainSlices;
+  const int slice = blk % kChainSlices;
+  const int head = bh % heads;
+  const long long base = static_cast<long long>(bh / heads) * st.b +
+                         static_cast<long long>(head) * st.h;
+  const long long bbase = static_cast<long long>(bh / heads) * bst.b +
+                          static_cast<long long>(head) * bst.h;
+  const int n_chunks = (seq + kC - 1) / kC;
+  auto chunk_of = [&](int p) { return kGrad ? n_chunks - 1 - p : p; };
+  auto stage = [&](int p) { return smem + L::kLoads + (p % kChainStages) * L::kStage; };
+  auto prep_buf = [&](int p) { return smem + L::kPreps + (p & 1) * L::kPrep; };
+
+  // cp.async of the p-th chunk in chain order into its stage, by the
+  // producer warp; rows past S are zero-filled
+  auto issue_loads = [&](int p) {
+    unsigned char* sp = stage(p);
+    const int t0 = chunk_of(p) * kC;
+    auto row_ok = [&](int row) { return t0 + row < seq; };
+    auto row_t = [&](int row) { return static_cast<long long>(row_ok(row) ? t0 + row : 0); };
+    for (int e = lane; e < kC * 8; e += 32) {            // a: 8 pieces a row
+      const int row = e >> 3, c = e & 7;
+      cp_async16(smem_addr(sp + L::kA + (row * kHD + c * 8) * 2),
+                 a + base + row_t(row) * st.s + c * 8, row_ok(row) ? 16 : 0);
+    }
+    constexpr int kWPieces = kHD * static_cast<int>(sizeof(TW)) / 16;
+    constexpr int kPer = 16 / static_cast<int>(sizeof(TW));
+    for (int e = lane; e < kC * kWPieces; e += 32) {
+      const int row = e / kWPieces, c = e % kWPieces;
+      cp_async16(smem_addr(sp + L::kW + row * kHD * static_cast<int>(sizeof(TW)) + c * 16),
+                 w + base + row_t(row) * st.s + c * kPer, row_ok(row) ? 16 : 0);
+    }
+    constexpr int kBPieces = kChainNV / 8;
+    for (int e = lane; e < kC * kBPieces; e += 32) {
+      const int row = e / kBPieces, c = e % kBPieces;
+      cp_async16(smem_addr(sp + L::kB + (row * L::kBLd + c * 8) * 2),
+                 bm + bbase + row_t(row) * bst.s + slice * kChainNV + c * 8, row_ok(row) ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // The p-th chunk's loads -> the bf16 parts of a*F and P_end, one key a
+  // thread; every register is loaded before anything is stored.
+  auto prepare = [&](int p) {
+    unsigned char* sp = stage(p);
+    const __nv_bfloat16* a_s = reinterpret_cast<const __nv_bfloat16*>(sp + L::kA);
+    TW* w_s = reinterpret_cast<TW*>(sp + L::kW);
+    unsigned char* pb = prep_buf(p);
+    __nv_bfloat16* af = reinterpret_cast<__nv_bfloat16*>(pb + L::kAF);
+    float* dec = reinterpret_cast<float*>(pb + L::kDec);
+    const int valid = min(kC, seq - chunk_of(p) * kC);
+    if (valid < kC) {                    // w past S is 1: those steps must not decay
+      for (int e = valid * kHD + tid; e < kC * kHD; e += kChainPrep) set_one(w_s + e);
+      chain_prep_sync();
+    }
+    const int i = tid;
+    float xv[kC], wv[kC];
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      xv[t] = to_f32(a_s[t * kHD + i]);
+      wv[t] = to_f32(w_s[t * kHD + i]);
+    }
+    float run = 1.f;
+    if (kGrad) {                         // r_t * P_t, P_t = prod_{s<t} w_s
+#pragma unroll
+      for (int t = 0; t < kC; t += 2) {
+        const float x0v = xv[t] * run;
+        run *= wv[t];
+        const float x1v = xv[t + 1] * run;
+        run *= wv[t + 1];
+        store_split2<3>(af + t * kLd + i, af + (t + 1) * kLd + i, kC * kLd, x0v, x1v);
+      }
+    } else {                             // k_b * E_b, E_b = prod_{b<s<C} w_s
+#pragma unroll
+      for (int b = kC - 1; b >= 0; b -= 2) {
+        const float x1v = xv[b] * run;
+        run *= wv[b];
+        const float x0v = xv[b - 1] * run;
+        run *= wv[b - 1];
+        store_split2<3>(af + (b - 1) * kLd + i, af + b * kLd + i, kC * kLd, x0v, x1v);
+      }
+    }
+    dec[i] = run;                        // P_end, the whole chunk's product
+  };
+
+  // The consumer's value: X^T[j][i] for its 16 value columns, as the
+  // accumulators of 8 n-tiles over the keys; lane (g, tq) holds
+  // X[nt][0..1] = (j = g, i = 8 nt + 2 tq + 0..1), X[nt][2..3] = (j = g + 8, ...).
+  const int g = lane >> 2, tq = lane & 3;
+  const int j_col = slice * kChainNV;
+  float X[8][4];
+  auto x_at = [&](int nt, int e) {      // offset of X[nt][e] in a [HD][HD] matrix
+    return (8 * nt + 2 * tq + (e & 1)) * kHD + j_col + g + 8 * (e >> 1);
+  };
+  // Iteration p = -1 loads chunks 0 .. D-1, prepares chunk 0 and sets X;
+  // iteration p >= 0 loads chunk p+D into the slot chunk p-1 left, prepares
+  // p+1 and applies p (D = kChainStages - 1: the chain is a few hundred
+  // cycles a chunk, a load from device memory several times that).  Each
+  // of issue_loads and prepare has one call site, so both are inlined.
+  constexpr int D = kChainStages - 1;
+  for (int p = -1; p < n_chunks; ++p) {
+    if (producer) {
+      for (int q = p < 0 ? 0 : p + D; q <= p + D; ++q) {
+        if (q < n_chunks) issue_loads(q);
+        else cp_async_commit();
+      }
+      cp_async_wait<D - 1>();                      // chunk p+1 has landed
+      chain_loads_arrive();
+    } else if (prep) {
+      chain_loads_sync();
+      if (p + 1 < n_chunks) prepare(p + 1);
+    } else if (p < 0) {
+      const float* x0_bh = x0 ? x0 + static_cast<size_t>(bh) * kHD * kHD : nullptr;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) X[nt][e] = x0_bh ? x0_bh[x_at(nt, e)] : 0.f;
+    } else {
+      float* ck_c = ck + (static_cast<size_t>(bh) * n_chunks + chunk_of(p)) * kHD * kHD;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ck_c[x_at(nt, e)] = X[nt][e];
+      const unsigned char* pb = prep_buf(p);
+      const uint32_t af = smem_addr(pb + L::kAF);
+      const float* dec = reinterpret_cast<const float*>(pb + L::kDec);
+      const uint32_t b_s = smem_addr(stage(p) + L::kB);
+      const int mi = lane >> 3, ri = lane & 7;
+      // b^T as the A operand: rows t = ri + 8 (mi >> 1), columns 8 (mi & 1),
+      // transposed
+      uint32_t bt[4];
+      ldsm_x4_trans(bt, b_s + ((ri + 8 * (mi >> 1)) * L::kBLd + 8 * (mi & 1)) * 2);
+      // X^T = X^T diag(P_end) + b^T (a*F), a*F in three parts (least
+      // first); rows t = ri + 8 (mi & 1), keys 16 np + 8 (mi >> 1), transposed
+      auto af_row = [&](int n) {         // n = 4 part + np, parts from the least
+        return af + (((2 - n / 4) * kC + ri + 8 * (mi & 1)) * kLd + 16 * (n % 4) +
+                     8 * (mi >> 1)) * 2;
+      };
+      uint32_t fb[4];
+      ldsm_x4_trans(fb, af_row(0));
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 d = *reinterpret_cast<const float2*>(dec + 8 * nt + 2 * tq);
+        X[nt][0] *= d.x;
+        X[nt][1] *= d.y;
+        X[nt][2] *= d.x;
+        X[nt][3] *= d.y;
+      }
+#pragma unroll
+      for (int n = 0; n < 12; ++n) {
+        uint32_t cur[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) cur[x] = fb[x];
+        if (n + 1 < 12) ldsm_x4_trans(fb, af_row(n + 1));
+        const int np = n % 4;
+        mma_bf16(X[2 * np], bt, cur[0], cur[1]);
+        mma_bf16(X[2 * np + 1], bt, cur[2], cur[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (kGrad && !prep && !producer) {
+    float* xT_bh = xT + static_cast<size_t>(bh) * kHD * kHD;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xT_bh[x_at(nt, e)] = X[nt][e];
+  }
+}
+
+// Both chains in one launch: blocks [0, n) the state chain, [n, 2n) the
+// gradient chain, n = B*H*kChainSlices.
+template <typename TW>
+__global__ void __launch_bounds__(kChainThreads)
+wkv_bwd_chain_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const TW* __restrict__ w,
+                     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ s0,
+                     const float* __restrict__ dsT, float* __restrict__ sck,
+                     float* __restrict__ gck, float* __restrict__ ds0, int heads, int seq,
+                     Strides st, Strides dst, int n) {
+  extern __shared__ __align__(16) unsigned char chain_smem[];
+  if (static_cast<int>(blockIdx.x) < n)
+    chain_body<TW, false>(chain_smem, k, w, v, s0, sck, nullptr, heads, seq, st, st, blockIdx.x);
+  else
+    chain_body<TW, true>(chain_smem, r, w, dout, dsT, gck, ds0, heads, seq, st, dst,
+                         blockIdx.x - n);
+}
+
+// The chunks.  One block of 16 warps walks kB3Chunks consecutive chunks of
+// one (b, h); thread (row i = tid / 8, column group cg = tid % 8) owns the
+// 8 entries (i, 4 cg + 0..3) and (i, 32 + 4 cg + 0..3) of S and of G, in
+// registers.
+constexpr int kB3Threads = 512;
+constexpr int kB3Warps = kB3Threads / 32;
+constexpr int kB3Sub = 4;                          // steps a recompute sub-chunk
+constexpr int kB3Subs = kC / kB3Sub;
+constexpr int kB3Chunks = 8;                       // chunks a block
+
+template <typename TW>
+struct B3Smem {                                    // byte offsets from a 16-aligned base
+  static constexpr int kTile = kC * kHD;
+  // one load stage: r, k, v, dout [C][HD] bf16, w [C][HD] TW, S_c and G_c [HD][HD] f32
+  static constexpr int kR = 0;
+  static constexpr int kK = kR + kTile * 2;
+  static constexpr int kV = kK + kTile * 2;
+  static constexpr int kD = kV + kTile * 2;
+  static constexpr int kW = kD + kTile * 2;
+  static constexpr int kSc = kW + kTile * static_cast<int>(sizeof(TW));
+  static constexpr int kGc = kSc + kHD * kHD * 4;
+  static constexpr int kStage = kGc + kHD * kHD * 4;
+  // f32 copies of r, k, v, dout, w [C][HD]; u [HD], v.dout and sum r*u*k [C]
+  static constexpr int kF = 2 * kStage;
+  static constexpr int kU = kF + 5 * kTile * 4;
+  // the states after steps 4, 8 and 12 [3][HD][HD]; dr, dk, dw, dv [4][C][HD];
+  // dv partial sums of each warp's 4 rows [warps][kB3Sub][HD]
+  static constexpr int kCk = kU + (kHD + 2 * kC) * 4;
+  static constexpr int kOut = kCk + (kB3Subs - 1) * kHD * kHD * 4;
+  static constexpr int kDvp = kOut + 4 * kTile * 4;
+  static constexpr int kBytes = kDvp + kB3Warps * kB3Sub * kHD * 4;
+};
+
+// x[0..3] and x[4..7] from the float4s at p and p + 32
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 32);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(p + 32) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// sum_e a[e] b[e] in two partial sums
+__device__ __forceinline__ float dot8(const float (&a)[8], const float (&b)[8]) {
+  float s0 = a[0] * b[0], s1 = a[1] * b[1];
+#pragma unroll
+  for (int e = 2; e < 8; e += 2) {
+    s0 = fmaf(a[e], b[e], s0);
+    s1 = fmaf(a[e + 1], b[e + 1], s1);
+  }
+  return s0 + s1;
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+__device__ __forceinline__ void store_pair(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(kB3Threads, 1)
+wkv_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const TW* __restrict__ w,
+                     const float* __restrict__ u, const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ sck, const float* __restrict__ gck,
+                     __nv_bfloat16* __restrict__ dr, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, TW* __restrict__ dw,
+                     float* __restrict__ du_part, int heads, int seq, Strides st, Strides dst,
+                     Strides gst) {
+  using L = B3Smem<TW>;
+  extern __shared__ __align__(16) unsigned char b3_smem[];
+  float* r_s = reinterpret_cast<float*>(b3_smem + L::kF);
+  float* k_s = r_s + L::kTile;
+  float* v_s = k_s + L::kTile;
+  float* d_s = v_s + L::kTile;
+  float* w_s = d_s + L::kTile;
+  float* u_s = reinterpret_cast<float*>(b3_smem + L::kU);
+  float* vdo_s = u_s + kHD;
+  float* ruk_s = vdo_s + kC;
+  float* ck_s = reinterpret_cast<float*>(b3_smem + L::kCk);
+  float* o_s = reinterpret_cast<float*>(b3_smem + L::kOut);    // dr, dk, dw, dv
+  float* dvp = reinterpret_cast<float*>(b3_smem + L::kDvp);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int i = tid >> 3, cg = tid & 7;
+  const int own = i * kHD + 4 * cg;                // first owned entry of a [HD][HD] matrix
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const long long in_base = static_cast<long long>(b) * st.b + static_cast<long long>(h) * st.h;
+  const long long do_base = static_cast<long long>(b) * dst.b + static_cast<long long>(h) * dst.h;
+  const long long g_base = static_cast<long long>(b) * gst.b + static_cast<long long>(h) * gst.h;
+  const int nch = (seq + kC - 1) / kC;
+  const int c_begin = blockIdx.x * kB3Chunks;
+  const int c_end = min(c_begin + kB3Chunks, nch);
+  auto stage = [&](int it) { return b3_smem + (it & 1) * L::kStage; };
+
+  // cp.async of chunk c into stage(it): each thread one 16-byte piece of
+  // each of r, k, v and dout, its share of w, and its own entries of S_c
+  // and G_c (which only it reads); rows past S zero-filled
+  auto issue = [&](int c, int it) {
+    unsigned char* sp = stage(it);
+    const int t0 = c * kC;
+    {
+      const int row = tid >> 3, piece = tid & 7;   // 16 rows x 8 pieces, one tile
+      const int tile = row >> 4, t = row & 15;     // tid < 128: r; < 256: k; ...
+      const bool ok = t0 + t < seq;
+      const long long tt = ok ? t0 + t : 0;
+      const int off = (t * kHD + piece * 8) * 2;
+      if (tile == 0) cp_async16(smem_addr(sp + L::kR + off), r + in_base + tt * st.s + piece * 8, ok ? 16 : 0);
+      else if (tile == 1) cp_async16(smem_addr(sp + L::kK + off), k + in_base + tt * st.s + piece * 8, ok ? 16 : 0);
+      else if (tile == 2) cp_async16(smem_addr(sp + L::kV + off), v + in_base + tt * st.s + piece * 8, ok ? 16 : 0);
+      else cp_async16(smem_addr(sp + L::kD + off), dout + do_base + tt * dst.s + piece * 8, ok ? 16 : 0);
+    }
+    constexpr int kWPieces = kHD * static_cast<int>(sizeof(TW)) / 16;
+    constexpr int kPer = 16 / static_cast<int>(sizeof(TW));
+    for (int e = tid; e < kC * kWPieces; e += kB3Threads) {
+      const int t = e / kWPieces, piece = e % kWPieces;
+      const bool ok = t0 + t < seq;
+      const long long tt = ok ? t0 + t : 0;
+      cp_async16(smem_addr(sp + L::kW + t * kHD * static_cast<int>(sizeof(TW)) + piece * 16),
+                 w + in_base + tt * st.s + piece * kPer, ok ? 16 : 0);
+    }
+    const size_t ck_off = (static_cast<size_t>(bh) * nch + c) * kHD * kHD + own;
+    cp_async16(smem_addr(sp + L::kSc + own * 4), sck + ck_off, 16);
+    cp_async16(smem_addr(sp + L::kSc + (own + 32) * 4), sck + ck_off + 32, 16);
+    cp_async16(smem_addr(sp + L::kGc + own * 4), gck + ck_off, 16);
+    cp_async16(smem_addr(sp + L::kGc + (own + 32) * 4), gck + ck_off + 32, 16);
+  };
+
+  issue(c_begin, 0);
+  cp_async_commit();
+  if (tid < kHD) u_s[tid] = u[h * kHD + tid];
+  const float ui = u[h * kHD + i];
+
+  for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
+    if (c + 1 < c_end) issue(c + 1, it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                            // chunk c has landed
+    __syncthreads();                               // for every thread; the last out tile is stored
+    const int t0 = c * kC;
+    const int valid = min(kC, seq - t0);
+    {                                              // the chunk in f32; w past S is 1
+      const unsigned char* sp = stage(it);
+      const int e = 2 * tid;                       // one pair of each tile
+      const int t = e >> 6;
+      auto conv = [&](int off, float* dst_s) {
+        const float2 x = load_pair(reinterpret_cast<const __nv_bfloat16*>(sp + off) + e);
+        *reinterpret_cast<float2*>(dst_s + e) = x;
+      };
+      conv(L::kR, r_s);
+      conv(L::kK, k_s);
+      conv(L::kV, v_s);
+      conv(L::kD, d_s);
+      const float2 x = t < valid ? load_pair(reinterpret_cast<const TW*>(sp + L::kW) + e)
+                                 : make_float2(1.f, 1.f);
+      *reinterpret_cast<float2*>(w_s + e) = x;
+    }
+    __syncthreads();
+    {                                              // v_t . dout_t and sum_i r_t u k_t: warp t
+      const int t = warp, j = 2 * lane;
+      const float2 vv = load_pair(v_s + t * kHD + j), dd = load_pair(d_s + t * kHD + j);
+      const float2 rr = load_pair(r_s + t * kHD + j), kk = load_pair(k_s + t * kHD + j);
+      const float2 uu = load_pair(u_s + j);
+      float vdo = fmaf(vv.y, dd.y, vv.x * dd.x);
+      float ruk = fmaf(rr.y * uu.y, kk.y, rr.x * uu.x * kk.x);
+#pragma unroll
+      for (int m = 16; m >= 1; m >>= 1) {
+        vdo += __shfl_xor_sync(0xffffffffu, vdo, m);
+        ruk += __shfl_xor_sync(0xffffffffu, ruk, m);
+      }
+      if (lane == 0) vdo_s[t] = vdo, ruk_s[t] = ruk;
+    }
+    __syncthreads();
+    if (tid < kHD) {                               // this chunk's du partial
+      float acc = 0.f;
+#pragma unroll
+      for (int t = 0; t < kC; ++t) acc = fmaf(r_s[t * kHD + tid] * k_s[t * kHD + tid], vdo_s[t], acc);
+      du_part[(static_cast<size_t>(bh) * nch + c) * kHD + tid] = acc;
+    }
+
+    const float* sc_s = reinterpret_cast<const float*>(stage(it) + L::kSc);
+    const float* gc_s = reinterpret_cast<const float*>(stage(it) + L::kGc);
+    // forward: the states after steps 4, 8 and 12, from S_c
+    {
+      float S[8], vt[8];
+      load8(sc_s + own, S);
+#pragma unroll
+      for (int t = 0; t < kC - kB3Sub; ++t) {
+        load8(v_s + t * kHD + 4 * cg, vt);
+        const float kt = k_s[t * kHD + i], wt = w_s[t * kHD + i];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) S[e] = fmaf(S[e], wt, kt * vt[e]);
+        if ((t + 1) % kB3Sub == 0) store8(ck_s + ((t + 1) / kB3Sub - 1) * kHD * kHD + own, S);
+      }
+    }
+    // backward, a sub-chunk at a time from the last: its 4 states
+    // recomputed, then dr, dk, dw and the dv partials with G carried back
+    // from G_c
+    float G[8];
+    load8(gc_s + own, G);
+    for (int sc = kB3Subs - 1; sc >= 0; --sc) {
+      const int tb = sc * kB3Sub;
+      float H[kB3Sub][8], rp[kB3Sub];
+      load8(sc == 0 ? sc_s + own : ck_s + (sc - 1) * kHD * kHD + own, H[0]);
+#pragma unroll
+      for (int q = 0; q + 1 < kB3Sub; ++q) {
+        const int t = tb + q;
+        float vt[8];
+        load8(v_s + t * kHD + 4 * cg, vt);
+        const float kt = k_s[t * kHD + i], wt = w_s[t * kHD + i];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) H[q + 1][e] = fmaf(H[q][e], wt, kt * vt[e]);
+      }
+      float a[2 * kB3Sub];                         // dk partials, then dw partials
+#pragma unroll
+      for (int q = kB3Sub - 1; q >= 0; --q) {
+        const int t = tb + q;
+        float vt[8], dt[8], dvv[8];
+        load8(v_s + t * kHD + 4 * cg, vt);
+        load8(d_s + t * kHD + 4 * cg, dt);
+        const float kt = k_s[t * kHD + i], wt = w_s[t * kHD + i], rt = r_s[t * kHD + i];
+        rp[q] = dot8(H[q], dt);
+        a[q] = dot8(G, vt);
+        a[kB3Sub + q] = dot8(G, H[q]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dvv[e] = G[e] * kt;
+        // sum dvv over the warp's 4 rows (lanes 8 apart): lane (r4, cg)
+        // keeps entries 2 r4 and 2 r4 + 1, columns dv_col(2 r4) + 0..1
+        {
+          const bool up = lane & 16;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lo = dvv[e], hi = dvv[e + 4];
+            dvv[e] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, 16);
+          }
+        }
+        {
+          const bool up = lane & 8;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float lo = dvv[e], hi = dvv[e + 2];
+            dvv[e] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, 8);
+          }
+        }
+        const int base_e = 2 * (lane >> 3);
+        const int col = base_e < 4 ? 4 * cg + base_e : 32 + 4 * cg + base_e - 4;
+        *reinterpret_cast<float2*>(dvp + (warp * kB3Sub + q) * kHD + col) =
+            make_float2(dvv[0], dvv[1]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) G[e] = fmaf(G[e], wt, rt * dt[e]);
+      }
+      // row sums over the row's 8 lanes: lane cg keeps entry cg of a
+      // (dk for cg < 4, else dw; step tb + cg % 4) and entry cg % 4 of rp
+      butterfly<4>(a, cg);
+      butterfly<2>(rp, cg);
+      rp[0] += __shfl_xor_sync(0xffffffffu, rp[0], 4);
+      {
+        const int t = tb + (cg & 3);
+        const float vdo = vdo_s[t];
+        if (cg < 4) {
+          o_s[(1 * kC + t) * kHD + i] = fmaf(ui * r_s[t * kHD + i], vdo, a[0]);   // dk
+          o_s[(0 * kC + t) * kHD + i] = fmaf(ui * k_s[t * kHD + i], vdo, rp[0]);  // dr
+        } else {
+          o_s[(2 * kC + t) * kHD + i] = a[0];                                    // dw
+        }
+      }
+      __syncthreads();                             // every warp's dv partials
+      {                                            // dv: the 16 warps' sums in order,
+        const int half = tid & 1;                  // warps 0-7 and 8-15 on lane pairs
+        const int q = (tid >> 1) / kHD, j = (tid >> 1) % kHD, t = tb + q;
+        float acc = 0.f;
+#pragma unroll
+        for (int wp = 0; wp < kB3Warps / 2; ++wp)
+          acc += dvp[((half * kB3Warps / 2 + wp) * kB3Sub + q) * kHD + j];
+        const float other = __shfl_xor_sync(0xffffffffu, acc, 1);
+        if (!half) o_s[(3 * kC + t) * kHD + j] = fmaf(ruk_s[t], d_s[t * kHD + j], acc + other);
+      }
+      __syncthreads();                             // dvp free again; the out tile complete
+    }
+
+    // the out tile, in pairs along hd, steps past S not stored
+    for (int e = tid; e < 4 * kC * (kHD / 2); e += kB3Threads) {
+      const int kind = e / (kC * kHD / 2), rem = e % (kC * kHD / 2);
+      const int t = rem / (kHD / 2), j = 2 * (rem % (kHD / 2));
+      if (t >= valid) continue;
+      const float2 x = load_pair(o_s + (kind * kC + t) * kHD + j);
+      const long long at = g_base + static_cast<long long>(t0 + t) * gst.s + j;
+      if (kind == 2) store_pair(dw + at, x.x, x.y);
+      else store_pair((kind == 0 ? dr : kind == 1 ? dk : dv) + at, x.x, x.y);
+    }
+  }
+}
+
+template <typename TW>
+cudaError_t launch_bwd_chunked(const void* r, const void* k, const void* v, const void* w,
+                               const float* u, const float* s0, const void* dout,
+                               const float* dsT, void* dr, void* dk, void* dv, void* dw,
+                               float* du_part, float* ds0, float* sck, float* gck, int bh,
+                               int heads, int seq, Strides st, Strides dst, Strides gst,
+                               cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr int chain_bytes = ChainSmem<TW>::kBytes;
+  constexpr int chunk_bytes = B3Smem<TW>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(wkv_bwd_chain_kernel<TW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, chain_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wkv_bwd_chunk_kernel<TW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, chunk_bytes);
+  if (err != cudaSuccess) return err;
+  const int n = bh * kChainSlices;
+  wkv_bwd_chain_kernel<TW><<<2 * n, kChainThreads, chain_bytes, stream>>>(
+      static_cast<const bf*>(r), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const TW*>(w), static_cast<const bf*>(dout), s0, dsT, sck, gck, ds0, heads, seq,
+      st, dst, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int nch = (seq + kC - 1) / kC;
+  const dim3 grid((nch + kB3Chunks - 1) / kB3Chunks, bh);
+  wkv_bwd_chunk_kernel<TW><<<grid, kB3Threads, chunk_bytes, stream>>>(
+      static_cast<const bf*>(r), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const TW*>(w), u, static_cast<const bf*>(dout), sck, gck, static_cast<bf*>(dr),
+      static_cast<bf*>(dk), static_cast<bf*>(dv), static_cast<TW*>(dw), du_part, heads, seq, st,
+      dst, gst);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The chunk-parallel backward: as repro_wkv_bwd with bf16 r/k/v/dout and
+// gradients, hd 64, f32 or bf16 w (bf16_w), for any S >= 1.  du_part is
+// [batch, heads, ceil(S/16), hd] f32, one partial per chunk, to be summed
+// over batch and chunks.  sck and gck are f32 scratch of batch * heads *
+// ceil(S/16) * hd * hd floats each (the state before every chunk, the
+// gradient after it).  The bases of r/k/v/w/dout and their strides in
+// bytes must be multiples of 16 (cp.async), those of the gradients of 8.
+// Two launches on `stream` (the chains, then the chunks), no
+// synchronisation; returns the first cudaError_t.
+extern "C" int repro_wkv_bwd_chunked(const void* r, const void* k, const void* v, const void* w,
+                                     const void* u, const void* s0, const void* dout,
+                                     const void* dsT, void* dr, void* dk, void* dv, void* dw,
+                                     void* du_part, void* ds0, void* sck, void* gck, int batch,
+                                     int heads, int seq, int hd, long long stride_b,
+                                     long long stride_h, long long stride_s,
+                                     long long dout_stride_b, long long dout_stride_h,
+                                     long long dout_stride_s, long long grad_stride_b,
+                                     long long grad_stride_h, long long grad_stride_s, int bf16_w,
+                                     void* stream) {
+  if (batch <= 0 || heads <= 0 || seq <= 0 || hd != kHD || batch * heads > 65535)
+    return cudaErrorInvalidValue;
+  const Strides st{stride_b, stride_h, stride_s};
+  const Strides dst{dout_stride_b, dout_stride_h, dout_stride_s};
+  const Strides gst{grad_stride_b, grad_stride_h, grad_stride_s};
+  const int bh = batch * heads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* uf = static_cast<const float*>(u);
+  const float* s0f = static_cast<const float*>(s0);
+  const float* dsTf = static_cast<const float*>(dsT);
+  float* dup = static_cast<float*>(du_part);
+  float* ds0f = static_cast<float*>(ds0);
+  float* sckf = static_cast<float*>(sck);
+  float* gckf = static_cast<float*>(gck);
+  if (bf16_w)
+    return launch_bwd_chunked<__nv_bfloat16>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, dup,
+                                             ds0f, sckf, gckf, bh, heads, seq, st, dst, gst, s);
+  return launch_bwd_chunked<float>(r, k, v, w, uf, s0f, dout, dsTf, dr, dk, dv, dw, dup, ds0f,
+                                   sckf, gckf, bh, heads, seq, st, dst, gst, s);
+}
+
+// Dynamic shared memory (bytes) of one block of the chunk-parallel
+// backward's chain kernel (chunks 0) or chunk kernel (chunks 1).
+extern "C" int repro_wkv_bwd_chunked_smem_bytes(int bf16_w, int chunks) {
+  if (chunks) return bf16_w ? B3Smem<__nv_bfloat16>::kBytes : B3Smem<float>::kBytes;
+  return bf16_w ? ChainSmem<__nv_bfloat16>::kBytes : ChainSmem<float>::kBytes;
 }

@@ -22,12 +22,21 @@ other:
 
 When grad mode is on and an input requires grad, the CUDA call is a
 :class:`torch.autograd.Function`: its forward launches the kernel above
-and saves only the inputs, and its gradient is the ``"backward"`` kernel
-(:func:`wkv_bhsd_bwd`), which recomputes the state from checkpoints it
-writes itself.  The TPU kernel has no backward; JAX differentiates its
-jnp model path.  :func:`wkv_bhsd_bwd_plain` rehearses the backward
-kernel's arithmetic in torch for the CPU tests; the plain gradient the
-card is held against is autograd of :func:`wkv_bhsd_plain`.
+and saves only the inputs, and its gradient (:func:`wkv_bhsd_bwd`) is one
+of two backward kernels, picked by :func:`backward_variant` by the rule
+of :func:`kernel_variant`, again with no fallback:
+
+* ``"backward_chunked"`` where the forward is ``"chunked"``: the state
+  chain and the gradient chain over 16-step chunks on the tensor cores,
+  then every (b, h, chunk) on its own on the CUDA cores;
+* ``"backward"`` for the rest: one warp per 32 rows or columns walking
+  all of S, the state recomputed from checkpoints it writes itself.
+
+The TPU kernel has no backward; JAX differentiates its jnp model path.
+:func:`wkv_bhsd_bwd_plain` and :func:`wkv_bhsd_bwd_chunked_plain` rehearse
+the two backward kernels' arithmetic in torch for the CPU tests; the
+plain gradient the card is held against is autograd of
+:func:`wkv_bhsd_plain`.
 """
 from __future__ import annotations
 
@@ -35,12 +44,14 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ._build import load_library
 from .ref import check_wkv_shapes, reference_wkv
 
-__all__ = ["wkv_bhsd", "wkv_bhsd_bwd", "wkv_bhsd_bwd_plain", "wkv_bhsd_plain",
-           "kernel_variant", "launch", "reset_launch_counts", "BWD_CHUNK",
+__all__ = ["wkv_bhsd", "wkv_bhsd_bwd", "wkv_bhsd_bwd_chunked_plain", "wkv_bhsd_bwd_plain",
+           "wkv_bhsd_plain", "backward_variant", "kernel_variant", "launch",
+           "launch_backward", "reset_launch_counts", "BWD_CHUNK",
            "CHUNKED_HEAD_DIM", "CHUNKED_MIN_SEQ", "KERNEL_HEAD_DIMS", "VARIANTS"]
 
 KERNEL_HEAD_DIMS = (8, 16, 32, 64)
@@ -48,14 +59,16 @@ CHUNKED_HEAD_DIM = 64
 # Shortest S that the chunked kernel serves; below it the sequential
 # kernel is as fast or faster (chip_smoke.py's wkv_choice rows, PERF.md).
 CHUNKED_MIN_SEQ = 16
-# Steps between the backward kernel's state checkpoints (kBwdChunk in
-# csrc/rwkv_wkv.cu): each row block recomputes a chunk's states from one.
+# Steps between the backward kernels' checkpoints (kBwdChunk and kC in
+# csrc/rwkv_wkv.cu): the ``"backward"`` kernel's row blocks recompute a
+# chunk's states from one; ``"backward_chunked"`` chains states and
+# gradients over chunks of this length.
 BWD_CHUNK = 16
-# the two forward kernels and the backward one, each counted on its own
-VARIANTS = ("chunked", "sequential", "backward")
+# the two forward kernels and the two backward ones, each counted on its own
+VARIANTS = ("chunked", "sequential", "backward", "backward_chunked")
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _ENTRY = {"chunked": "repro_wkv_fwd_chunked", "sequential": "repro_wkv_fwd",
-          "backward": "repro_wkv_bwd"}
+          "backward": "repro_wkv_bwd", "backward_chunked": "repro_wkv_bwd_chunked"}
 # the plain version is the oracle itself: one plain WKV in the port
 wkv_bhsd_plain = reference_wkv
 
@@ -68,6 +81,14 @@ def kernel_variant(dtype: torch.dtype, w_dtype: torch.dtype, hd: int, s: int) ->
     return "chunked" if chunked else "sequential"
 
 
+def backward_variant(dtype: torch.dtype, w_dtype: torch.dtype, hd: int, s: int) -> str:
+    """The backward kernel that serves a CUDA call under grad: the
+    chunk-parallel one exactly where :func:`kernel_variant` picks the
+    chunked forward."""
+    chunked = kernel_variant(dtype, w_dtype, hd, s) == "chunked"
+    return "backward_chunked" if chunked else "backward"
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(variant: str):
     fn = getattr(load_library("rwkv_wkv"), _ENTRY[variant])
@@ -75,10 +96,11 @@ def _kernel(variant: str):
     # otherwise pass Python ints as 32-bit C ints and cut them.
     # Forward: 8 pointers, (batch, heads, seq, hd), two sets of strides,
     # then the flags (bf16_rkv, bf16_w) or, for the chunked kernel, bf16_w
-    # alone.  Backward: 15 pointers, (batch, heads, seq, hd), three sets of
-    # strides (inputs, dout, gradients), (bf16_rkv, bf16_w).
-    n_ptr, n_strides = (15, 9) if variant == "backward" else (8, 6)
-    flags = 1 if variant == "chunked" else 2
+    # alone.  Backward: 15 pointers (16 for the chunk-parallel one), (batch,
+    # heads, seq, hd), three sets of strides (inputs, dout, gradients),
+    # (bf16_rkv, bf16_w) or bf16_w alone.
+    n_ptr, n_strides = {"backward": (15, 9), "backward_chunked": (16, 9)}.get(variant, (8, 6))
+    flags = 1 if variant in ("chunked", "backward_chunked") else 2
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * n_strides + [ctypes.c_int] * flags
                    + [ctypes.c_void_p])
@@ -113,6 +135,12 @@ def launch(variant: str, r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]
     return out, sT
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base and (B, H, S) strides on 16-byte boundaries, as cp.async needs."""
+    return t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0
+                                          for st in _strides(t))
+
+
 def _check_cuda(r, k, v, w, u, s0) -> str:
     """Raise unless the kernels take these CUDA tensors; the forward variant."""
     devices = {t.device for t in (r, k, v, w, u, s0)}
@@ -136,9 +164,7 @@ def _check_cuda(r, k, v, w, u, s0) -> str:
         raise ValueError("kernel takes r, k, v, w in one layout (equal strides); got "
                          f"{[t.stride() for t in (r, k, v, w)]}")
     variant = kernel_variant(r.dtype, w.dtype, hd, s)
-    if variant == "chunked" and any(
-            t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in _strides(t))
-            for t in (r, k, v, w)):
+    if variant == "chunked" and not all(_aligned16(t) for t in (r, k, v, w)):
         raise ValueError("the chunked kernel takes r, k, v, w at 16-byte-aligned bases "
                          "and strides (cp.async); got a view off that alignment")
     return variant
@@ -157,50 +183,79 @@ def _forward(r, k, v, w, u, s0):
     return out, sT
 
 
+def launch_backward(variant: str, r, k, v, w, u, s0, dout, dsT=None):
+    """One launch of the backward kernel ``variant`` on checked CUDA inputs
+    (dout with a unit stride over hd, 16-byte aligned for
+    ``"backward_chunked"``; dsT f32 contiguous or None); counts nothing.
+
+    :func:`wkv_bhsd_bwd` checks, picks and counts; ``chip_smoke.py`` and
+    the card tests call this to run the ``"backward"`` kernel on inputs the
+    wrapper gives the other one.  Returns what :func:`wkv_bhsd_bwd`
+    returns."""
+    b, h, s, hd = r.shape
+    dr = torch.empty_like(r)
+    dk, dv = (torch.empty_strided(r.shape, dr.stride(), dtype=r.dtype, device=r.device)
+              for _ in range(2))
+    dw = torch.empty_strided(r.shape, dr.stride(), dtype=w.dtype, device=r.device)
+    ds0 = torch.empty_like(s0)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    if variant == "backward_chunked":
+        n_chunks = -(-s // BWD_CHUNK)
+        du = torch.empty((b, h, n_chunks, hd), **f32)          # per batch row and chunk
+        # the state before every chunk, the gradient after it
+        scratch = [torch.empty((b * h * n_chunks * hd * hd,), **f32) for _ in range(2)]
+        flags = (int(w.dtype == torch.bfloat16),)
+    else:
+        du = torch.empty((b, h, hd), **f32)                    # per batch row
+        n_ckpt = (s - 1) // BWD_CHUNK      # states after steps C, 2C, ... before S
+        scratch = [torch.empty((max(b * h * n_ckpt * hd * hd, 1),), **f32)]
+        flags = (int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16))
+    uf = u.float().contiguous()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = _kernel(variant)(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), uf.data_ptr(),
+            s0.data_ptr(), dout.data_ptr(), None if dsT is None else dsT.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            ds0.data_ptr(), *(t.data_ptr() for t in scratch), b, h, s, hd, *_strides(r),
+            *_strides(dout), *_strides(dr), *flags, stream)
+    if err != 0:
+        raise RuntimeError(f"WKV {variant} kernel launch failed: cudaError_t {err}")
+    du = du.sum((0, 2)) if variant == "backward_chunked" else du.sum(0)
+    return dr, dk, dv, dw, du.to(u.dtype), ds0
+
+
 def wkv_bhsd_bwd(r, k, v, w, u, s0, dout, dsT=None):
     """(dr, dk, dv, dw, du, ds0) of :func:`wkv_bhsd` at its inputs for the
     output gradient ``dout`` and the final state's ``dsT`` (f32, None for
-    zero): one launch of the backward kernel.
+    zero): one launch of the backward kernel :func:`backward_variant`
+    picks, counted.
 
     It takes what the forward kernels take, and ``dout`` of r's shape and
-    dtype in any layout: a view without a unit stride over hd is copied
-    first (counted in ``wkv_bhsd.dout_copies``).  dr, dk and dv come in r's
-    dtype and dw in w's, all four in r's layout where r is dense (as the
-    forward allocates out); du in u's dtype; ds0 f32."""
+    dtype in any layout: a view without a unit stride over hd, or (for the
+    chunk-parallel kernel, whose cp.async loads need them) off 16-byte
+    bases and strides, is copied first (counted in
+    ``wkv_bhsd.dout_copies``).  dr, dk and dv come in r's dtype and dw in
+    w's, all four in r's layout where r is dense (as the forward allocates
+    out); du in u's dtype; ds0 f32."""
     _check_cuda(r, k, v, w, u, s0)
     b, h, s, hd = r.shape
+    variant = backward_variant(r.dtype, w.dtype, hd, s)
     if dout.shape != r.shape or dout.dtype != r.dtype or dout.device != r.device:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match r "
                          f"{tuple(r.shape)} {r.dtype}")
-    if dout.stride(3) != 1:
-        dout = dout.contiguous()
+    if dout.stride(3) != 1 or (variant == "backward_chunked" and not _aligned16(dout)):
+        # a copy, also of a contiguous view off alignment (.contiguous()
+        # would return that view)
+        dout = dout.clone(memory_format=torch.contiguous_format)
         wkv_bhsd.dout_copies += 1
     if dsT is not None:
         if dsT.shape != s0.shape or dsT.device != r.device:
             raise ValueError(f"dsT {tuple(dsT.shape)} does not match s0 {tuple(s0.shape)}")
         dsT = dsT.float().contiguous()
-    dr = torch.empty_like(r)
-    dk, dv = (torch.empty_strided(r.shape, dr.stride(), dtype=r.dtype, device=r.device)
-              for _ in range(2))
-    dw = torch.empty_strided(r.shape, dr.stride(), dtype=w.dtype, device=r.device)
-    du = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)   # per batch row
-    ds0 = torch.empty_like(s0)
-    n_ckpt = (s - 1) // BWD_CHUNK          # states after steps C, 2C, ... before S
-    ckpt = torch.empty((max(b * h * n_ckpt * hd * hd, 1),), dtype=torch.float32,
-                       device=r.device)
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = _kernel("backward")(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.float().contiguous().data_ptr(), s0.data_ptr(), dout.data_ptr(),
-            None if dsT is None else dsT.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), ckpt.data_ptr(),
-            b, h, s, hd, *_strides(r), *_strides(dout), *_strides(dr),
-            int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"WKV backward kernel launch failed: cudaError_t {err}")
-    _count("backward")
-    return dr, dk, dv, dw, du.sum(0).to(u.dtype), ds0
+    grads = launch_backward(variant, r, k, v, w, u, s0, dout, dsT)
+    _count(variant)
+    return grads
 
 
 def wkv_bhsd_bwd_plain(r, k, v, w, u, s0, dout, dsT=None):
@@ -257,6 +312,80 @@ def wkv_bhsd_bwd_plain(r, k, v, w, u, s0, dout, dsT=None):
             g = wf[:, :, t, :, None] * g + rf[:, :, t, :, None] * df[:, :, t, None, :]
     return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw.to(w.dtype),
             du.sum(0).to(u.dtype), g)
+
+
+def _chunk_decays(wc):
+    """(P, E, P_end) of chunks wc [..., C, hd]: P_t = prod_{s<t} w_s,
+    E_b = prod_{b<s<C} w_s, both exclusive, and the whole chunk's product;
+    products of w only."""
+    ones = torch.ones_like(wc[..., :1, :])
+    inclusive = torch.cumprod(wc, dim=-2)
+    suffix = torch.flip(torch.cumprod(torch.flip(wc, [-2]), dim=-2), [-2])
+    return (torch.cat([ones, inclusive[..., :-1, :]], dim=-2),
+            torch.cat([suffix[..., 1:, :], ones], dim=-2), inclusive[..., -1, :])
+
+
+def wkv_bhsd_bwd_chunked_plain(r, k, v, w, u, s0, dout, dsT=None):
+    """The chunk-parallel backward kernel's arithmetic in torch (f32), for
+    the CPU tests.  S is cut into chunks of C = :data:`BWD_CHUNK` steps (the
+    last padded with r = k = v = dout = 0 and w = 1, which change nothing);
+    inside chunk c, P_t and E_b are the exclusive products of w from its
+    start and to its end, P_end the whole chunk's:
+
+    1. the state chain, forward: S_0 = s0, S_{c+1} = diag(P_end) S_c +
+       Σ_b (k_b ⊙ E_b) v_bᵀ;
+    2. the gradient chain, backward: Ĝ_last = dsT (or 0), Ĝ_{c-1} =
+       diag(P_end) Ĝ_c + Σ_t (r_t ⊙ P_t) dout_tᵀ, Ĝ_c being dL/dS after
+       chunk c; its last value is ds0;
+    3. every chunk at once: S_t forward from S_c and G_{t+1} backward from
+       Ĝ_c, then dr_t = S_t·dout_t + u ⊙ k_t (v_t·dout_t), dk_t =
+       G_{t+1} v_t + u ⊙ r_t (v_t·dout_t), dv_t = G_{t+1}ᵀ k_t +
+       (Σ_i r_t u k_t) dout_t, dw_t = rowsum(G_{t+1} ⊙ S_t) and a du
+       partial per chunk, summed over batch and chunks.
+
+    The kernel runs 1 and 2 on the tensor cores with a*F in three bf16
+    parts (tests/test_torch_wkv_bwd_chunked.py rehearses that arithmetic)
+    and 3 in f32 on the CUDA cores.  Returns what :func:`wkv_bhsd_bwd`
+    returns.
+    """
+    check_wkv_shapes(r, k, v, w, u, s0)
+    b, h, s, hd = r.shape
+    c = BWD_CHUNK
+    n = -(-s // c)
+    pad = (0, 0, 0, n * c - s)
+    chunks = lambda t, value=0.0: F.pad(t.float(), pad, value=value).view(b, h, n, c, hd)  # noqa: E731
+    rc, kc, vc, dc = (chunks(t) for t in (r, k, v, dout))
+    wc = chunks(w, 1.0)
+    uf = u.float()[None, :, None, None, :]           # [1, H, 1, 1, hd]
+    p_excl, e_excl, p_end = _chunk_decays(wc)
+    ke, rp = kc * e_excl, rc * p_excl
+    state, states = s0.float(), []
+    for i in range(n):                               # 1: S before chunk i
+        states.append(state)
+        state = p_end[:, :, i, :, None] * state + ke[:, :, i].transpose(-1, -2) @ vc[:, :, i]
+    g = torch.zeros_like(s0, dtype=torch.float32) if dsT is None else dsT.float()
+    grads = [None] * n
+    for i in reversed(range(n)):                     # 2: G after chunk i
+        grads[i] = g
+        g = p_end[:, :, i, :, None] * g + rp[:, :, i].transpose(-1, -2) @ dc[:, :, i]
+    vdo = (vc * dc).sum(-1, keepdim=True)            # [B, H, n, C, 1]
+    ruk = (rc * uf * kc).sum(-1, keepdim=True)
+    hist, st = [], torch.stack(states, dim=2)        # 3: [B, H, n, hd, hd]
+    for t in range(c):
+        hist.append(st)
+        st = wc[..., t, :, None] * st + kc[..., t, :, None] * vc[..., t, None, :]
+    gt = torch.stack(grads, dim=2)
+    dr, dk, dv, dw = (torch.empty_like(rc) for _ in range(4))
+    for t in reversed(range(c)):
+        dr[..., t, :] = (hist[t] @ dc[..., t, :, None])[..., 0] + uf[..., 0, :] * kc[..., t, :] * vdo[..., t, :]
+        dk[..., t, :] = (gt @ vc[..., t, :, None])[..., 0] + uf[..., 0, :] * rc[..., t, :] * vdo[..., t, :]
+        dv[..., t, :] = (kc[..., t, None, :] @ gt)[..., 0, :] + ruk[..., t, :] * dc[..., t, :]
+        dw[..., t, :] = (gt * hist[t]).sum(-1)
+        gt = wc[..., t, :, None] * gt + rc[..., t, :, None] * dc[..., t, None, :]
+    du = (rc * kc * vdo).sum(3)                      # [B, H, n, hd] partials
+    unchunk = lambda t, dt: t.reshape(b, h, n * c, hd)[:, :, :s].to(dt)  # noqa: E731
+    return (unchunk(dr, r.dtype), unchunk(dk, r.dtype), unchunk(dv, r.dtype),
+            unchunk(dw, w.dtype), du.sum((0, 2)).to(u.dtype), g)
 
 
 class _WKV(torch.autograd.Function):

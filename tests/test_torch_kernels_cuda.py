@@ -604,9 +604,9 @@ def _dropped_step(dout):
 @pytest.mark.parametrize("w_law", ["uniform", "model"])
 def test_wkv_backward_matches_autograd_of_plain(card, b, s, h, hd, dtype, w_law):
     """dr, dk, dv, dw, du and ds0 through the Function (forward kernel,
-    then the backward kernel) against autograd of the plain version, with
-    nonzero s0 and dsT; a dropped dout step is rejected at S >= 256; two
-    calls give identical bits."""
+    then the backward kernel backward_variant picks) against autograd of
+    the plain version, with nonzero s0 and dsT; a dropped dout step is
+    rejected at S >= 256; two calls give identical bits."""
     args = _wkv_inputs(b, s, h, hd, dtype, w_law, b * s + hd + 1, card)
     gen = torch.Generator(device=card).manual_seed(s)
     dout = torch.randn(args[0].shape, generator=gen, device=card).to(args[0].dtype)
@@ -615,8 +615,9 @@ def test_wkv_backward_matches_autograd_of_plain(card, b, s, h, hd, dtype, w_law)
     got = _wkv_grads(wkv_bhsd, args, dout, dsT)
     torch.cuda.synchronize()
     fwd = wkvk.kernel_variant(args[0].dtype, args[3].dtype, hd, s)
+    bwd = wkvk.backward_variant(args[0].dtype, args[3].dtype, hd, s)
     assert wkv_bhsd.launches == total + 2
-    assert wkv_bhsd.variant_launches["backward"] == counts["backward"] + 1
+    assert wkv_bhsd.variant_launches[bwd] == counts[bwd] + 1
     assert wkv_bhsd.variant_launches[fwd] == counts[fwd] + 1
     ref = _wkv_grads(wkv_bhsd_plain, args, dout, dsT)
     for name in _WKV_GRADS:
@@ -670,3 +671,94 @@ def test_wkv_backward_returns_only_what_is_asked(card):
     with torch.no_grad():
         out, _ = wkv_bhsd(r, k, v, w, u, s0)
     assert out.grad_fn is None and wkv_bhsd.launches == total + 1
+
+
+# The chunk-parallel backward: bf16 r/k/v at hd 64 and S >= CHUNKED_MIN_SEQ,
+# at the chunk edges, a ragged S over several 4-chunk blocks, the model's
+# heads, and a batch; f32 and bf16 w.
+_WKV_CHUNKED_BWD_SHAPES = [(1, 16, 1, 64), (2, 17, 2, 64), (1, 63, 4, 64), (2, 64, 4, 64),
+                           (1, 1000, 8, 64), (2, 300, 32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd", _WKV_CHUNKED_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["bf16", "bf16w"])
+@pytest.mark.parametrize("w_law", ["uniform", "model", "extreme"])
+def test_wkv_chunked_backward_matches_autograd_of_plain(card, b, s, h, hd, dtype, w_law):
+    """The chunk-parallel backward, called directly, against autograd of
+    the plain version with nonzero s0 and dsT and without dsT; the planted
+    fault (one late dout step dropped) is rejected at S >= 256; two calls
+    give identical bits; the old backward on the same inputs meets the
+    same limit."""
+    args = _wkv_inputs(b, s, h, hd, dtype, w_law, 3 * s + b + len(w_law), card)
+    assert wkvk.backward_variant(args[0].dtype, args[3].dtype, hd, s) == "backward_chunked"
+    gen = torch.Generator(device=card).manual_seed(s + 1)
+    dout = torch.randn(args[0].shape, generator=gen, device=card).to(args[0].dtype)
+    dsT = torch.randn(args[5].shape, generator=gen, device=card)
+    for state_grad in (dsT, None):
+        ref = _wkv_grads(wkv_bhsd_plain, args, dout, state_grad)
+        total, counts = _counts()
+        got = dict(zip(_WKV_GRADS, wkvk.wkv_bhsd_bwd(*args, dout, state_grad)))
+        torch.cuda.synchronize()
+        assert wkv_bhsd.launches == total + 1
+        assert wkv_bhsd.variant_launches["backward_chunked"] == counts["backward_chunked"] + 1
+        for name in _WKV_GRADS:
+            assert got[name].dtype == ref[name].dtype and got[name].shape == ref[name].shape
+            assert _wkv_bwd_ratio(name, got[name], ref[name]) <= 1, (name, state_grad is None)
+        again = dict(zip(_WKV_GRADS, wkvk.wkv_bhsd_bwd(*args, dout, state_grad)))
+        assert all(torch.equal(again[n], got[n]) for n in _WKV_GRADS)
+    old = dict(zip(_WKV_GRADS, wkvk.launch_backward("backward", *args, dout)))
+    assert max(_wkv_bwd_ratio(n, old[n], ref[n]) for n in _WKV_GRADS) <= 1
+    if s >= 256:
+        bad = _wkv_grads(wkv_bhsd_plain, args, _dropped_step(dout), None)
+        assert max(_wkv_bwd_ratio(n, bad[n], ref[n]) for n in _WKV_GRADS) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,s,variant", [
+    ("bf16", 64, 4096, "backward_chunked"), ("bf16w", 64, 300, "backward_chunked"),
+    ("bf16", 64, wkvk.CHUNKED_MIN_SEQ, "backward_chunked"),
+    ("bf16", 64, wkvk.CHUNKED_MIN_SEQ - 1, "backward"), ("bf16", 64, 1, "backward"),
+    ("bf16", 32, 300, "backward"), ("f32", 64, 300, "backward"), ("f32", 16, 40, "backward")])
+def test_wkv_backward_variant_counts(card, dtype, hd, s, variant):
+    """The chunk-parallel backward serves exactly the calls whose forward
+    is the chunked kernel; each backward raises its own count and the sum,
+    and a step of training in the model's layout copies no dout."""
+    args = _wkv_inputs(1, s, 2, hd, dtype, "model", s + hd, card)
+    assert wkvk.backward_variant(args[0].dtype, args[3].dtype, hd, s) == variant
+    fwd = wkvk.kernel_variant(args[0].dtype, args[3].dtype, hd, s)
+    leaves = [x.clone().requires_grad_() for x in args]
+    out, _ = wkv_bhsd(*leaves)
+    total, counts = _counts()
+    copies = wkv_bhsd.dout_copies
+    out.backward(torch.randn_like(out))
+    torch.cuda.synchronize()
+    assert wkv_bhsd.launches == total + 1
+    assert wkv_bhsd.variant_launches == {n: c + (n == variant) for n, c in counts.items()}
+    assert wkv_bhsd.dout_copies == copies
+    assert (fwd == "chunked") == (variant == "backward_chunked")
+
+
+@pytest.mark.cuda
+def test_wkv_chunked_backward_rejects_and_copies(card):
+    """What the chunk-parallel backward does not take raises before a
+    launch (unaligned r/k/v/w views), and a dout view off 16-byte
+    alignment is copied once, counted, with the same gradients."""
+    args = _wkv_inputs(1, 64, 2, 64, "bf16", "model", 2, card)
+    dout = torch.randn(args[0].shape, device=card).to(torch.bfloat16)
+    total = wkv_bhsd.launches
+    flat = torch.zeros(args[0].numel() + 8, device=card, dtype=torch.bfloat16)
+    off = flat[1:1 + args[0].numel()].view(args[0].shape)
+    assert off.data_ptr() % 16
+    off.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        wkvk.wkv_bhsd_bwd(off, *args[1:], dout)
+    assert wkv_bhsd.launches == total
+    ref = wkvk.wkv_bhsd_bwd(*args, dout)
+    flat.zero_()
+    dout_off = flat[1:1 + dout.numel()].view(dout.shape)
+    dout_off.copy_(dout)
+    copies = wkv_bhsd.dout_copies
+    got = wkvk.wkv_bhsd_bwd(*args, dout_off)
+    assert wkv_bhsd.dout_copies == copies + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
