@@ -22,11 +22,13 @@ a non-zero exit if it fails:
                among them)
 2. kernel      ``flash_attention_bhsd`` vs its plain version on the card, f32
                and bf16, causal both ways, at the test shapes, a ragged S=1000
-               and every shape the later phases give it, each row naming the
-               kernel that served it (tensor-core or CUDA-core); at S >= 256
+               and every shape the later phases give it (olmoe_1b_7b's MHA
+               16/16 and mixtral_8x7b's GQA 32/8 among them), each row naming
+               the kernel that served it (tensor-core or CUDA-core); at S >= 256
                also a planted fault (one V tile zeroed) that the limit must
-               reject; times at the one-layer prefill shape, with achieved
-               TFLOP/s, share of the bound and the ratio to SDPA
+               reject; times at the one-layer prefill shapes of llama3_8b
+               (32/8) and olmoe_1b_7b (16/16), with achieved TFLOP/s, share of
+               the bound and the ratio to SDPA
 3. wkv         ``wkv_bhsd`` vs its plain version, out and state, f32 and bf16
                r/k/v with f32 w, two laws of w, nonzero s0, at the test
                shapes and a ragged S=1000 (contiguous [B,H,S,hd]) and at
@@ -72,10 +74,11 @@ a non-zero exit if it fails:
                fault (one dO tile zeroed in the plain run) that the limit
                must reject; every tensor-core backward call run twice,
                which must give identical bits; times at the training
-               shape: the tensor-core and the CUDA-core backward on the
-               same bf16 inputs, the CUDA-core one in f32, autograd of the
-               plain version and SDPA's backward (the yardstick only),
-               the five-product bound and the bound of the products the
+               shapes (llama3_8b's, and olmoe_1b_7b's MHA in bf16): the
+               tensor-core and the CUDA-core backward on the same bf16
+               inputs, the CUDA-core one in f32, autograd of the plain
+               version and SDPA's backward (the yardstick only), the
+               five-product bound and the bound of the products the
                tensor-core kernel runs (``WGMMA_BWD_PRODUCTS``)
 8b. wkv_backward  both WKV backward kernels vs autograd of the plain
                version: dr, dk, dv, dw, du and ds0, f32 and bf16 r/k/v with
@@ -106,12 +109,12 @@ a non-zero exit if it fails:
                kernel launches per step (8 tensor-core backward launches,
                no CUDA-core one), a profiler window over one step (with
                the flash kernels' own device time),
-               one ``remat="full"`` step, then the falling loss from fresh
+               two ``remat="full"`` steps, then the falling loss from fresh
                weights — the training main path, whose backward launches
                are counted
 10b. rwkv_train  rwkv6_1b6 at full width and full depth (24 layers, 1.84 B
                parameters), the same step, timing, profile (with the WKV
-               kernels' own device time), ``remat="full"`` step and
+               kernels' own device time), ``remat="full"`` steps and
                falling-loss check as phase 10: 24 chunked forward and 24
                ``backward_chunked`` WKV launches a step (none of
                ``backward``), no flash launch
@@ -123,8 +126,37 @@ a non-zero exit if it fails:
                card (smoke config, f32: the sequential WKV kernel and the
                ``backward`` kernel: the path whose launches the kernels
                line counts for it)
-12. kernels    the card's nvidia-smi line again, one JSON line listing every
-               ported kernel, and the final ``{"ok": true, "device": ...}``.
+12. olmoe      full olmoe_1b_7b (16 layers, d 2048, 16/16 heads of 128, 64
+               experts top-8 of d_ff 1024, bf16, seeded random weights):
+               ``prefill`` on 2 x 4096 tokens, 16 tensor-core flash launches
+               per call; the tokens each MoE layer drops at capacity factor
+               1.25; a profiler window over one prefill call (busy share,
+               top kernels, device time under the MoE's ops: the expert
+               products' ``aten::bmm``) and one 4-slot decode step;
+               ``ServeLoop(slots=4)`` answering 8 requests; then
+               ``serve.main(["--arch", "olmoe_1b_7b", "--production", ...])``
+               — olmoe's serving path, whose flash launches are counted
+13. olmoe_train olmoe_1b_7b at full width, 6 of 16 layers (2.72 B parameters),
+               the step of phase 10: 6 ``wgmma`` and 6 ``backward_wgmma``
+               launches a step; two steps each under ``remat="full"`` and
+               ``"dots"`` (twice the forwards), each with its split,
+               tokens/s, step peak and forward+backward peak; the "dots"
+               peaks between "full"'s and "none"'s; the ops the "dots"
+               policy saved; falling loss from fresh weights
+14. olmoe_f32  olmoe_1b_7b at full width, 4 layers, f32 (TF32 off): prefill vs
+               decode logits at capacity factor 16 (no token dropped) as
+               phase 5; ``LM.loss`` and every gradient leaf through the
+               kernels vs the chunked attention scan as phase 9
+15. mixtral    mixtral_8x7b at full width, 4 of 32 layers, bf16: ``prefill``
+               on 1 x 4096 tokens, where the 4096 window masks nothing and
+               so takes the tensor-core kernel (4 GQA 32/8 launches); the
+               prefill's k/v written into a decode cache, then 16 greedy
+               decode steps past the window, which ``decode_attention``
+               masks; finite logits
+16. kernels    the card's nvidia-smi line again, one JSON line listing every
+               ported kernel (the flash forward and tensor-core backward also
+               at olmoe_1b_7b's shape, with their launches on its paths), and
+               the final ``{"ok": true, "device": ...}``.
 
 Prefill calls and profile windows are timed after a full garbage
 collection, and each reports the collector's seconds inside it; the
@@ -158,6 +190,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.rwkv import wkv_chunked  # noqa: E402
@@ -176,8 +209,15 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 # the llama3_8b prefill layer: B=1, S=4096, Hq=32, Hkv=8, hd=128, causal
 MAIN_SHAPE = (1, 4096, 32, 8, 128)
+# the olmoe_1b_7b layer at the same length: MHA, 16 heads of 128
+OLMOE_SHAPE = (1, 4096, 16, 16, 128)
+# the shapes whose kernel times the kernels line reports, by the arch whose
+# layer they are (llama3_8b: both dtypes; olmoe_1b_7b: bf16, its dtype)
+TIMED_SHAPES = {MAIN_SHAPE: ("llama3_8b", ("f32", "bf16")),
+                OLMOE_SHAPE: ("olmoe_1b_7b", ("bf16",))}
 PREFILL = (2, 4096)                 # prompt batch x length of phase 3
 MAIN_PATH = (2, 256)                # batch x prompt length of serve.main below
+CONSISTENCY = (2, 80)               # batch x length of the 4-layer f32 prefill vs decode
 KERNEL_SHAPES = [
     (1, 32, 2, 2, 16),      # MHA
     (2, 64, 4, 2, 32),      # GQA 2:1
@@ -185,9 +225,13 @@ KERNEL_SHAPES = [
     (2, 48, 4, 4, 128),     # S not a multiple of the tile
     (1, 1000, 32, 8, 128),  # ragged S at llama3_8b heads
     (2, 1000, 16, 4, 64),   # ragged S, GQA 4:1, the tensor-core kernel's hd 64
-    MAIN_SHAPE,
+    MAIN_SHAPE,                 # also what phase 15's mixtral_8x7b prefill gives it
+    OLMOE_SHAPE,
     (*PREFILL, 32, 8, 128),     # what phase 3's prefill gives the kernel
     (*MAIN_PATH, 32, 8, 128),   # what serve.main's prefill gives it
+    (*PREFILL, 16, 16, 128),    # olmoe_1b_7b's prefill (phase 12)
+    (*MAIN_PATH, 16, 16, 128),  # olmoe_1b_7b's serve.main prefill
+    (*CONSISTENCY, 16, 16, 128),  # olmoe_1b_7b's 4-layer f32 prefill (phase 14)
 ]
 # training: llama3_8b at full width with its depth cut to 8 of 32 layers
 # (2.80 B parameters: params, grads, m, v and master take 44.8 GB), one
@@ -207,9 +251,19 @@ GRAD_CHECK = (1, 256)               # batch x length of phase 9 (4 layers, f32)
 GRAD_TOL = 1e-3                     # of each leaf's largest |gradient|
 TRAINER_SHAPE = (16, 4)             # seq x batch of phase 11 (the CPU tests' TINY)
 # the backward kernel's shapes: the forward's test shapes and ragged S,
-# the training shape, and what phases 9 and 11 give it
-BWD_SHAPES = KERNEL_SHAPES[:-2] + [
-    (GRAD_CHECK[0], GRAD_CHECK[1], 32, 8, 128), (TRAINER_SHAPE[1], TRAINER_SHAPE[0], 4, 2, 16)]
+# the training shapes, and what phases 9, 11 and 14 give it
+BWD_SHAPES = KERNEL_SHAPES[:8] + [
+    (GRAD_CHECK[0], GRAD_CHECK[1], 32, 8, 128), (TRAINER_SHAPE[1], TRAINER_SHAPE[0], 4, 2, 16),
+    (GRAD_CHECK[0], GRAD_CHECK[1], 16, 16, 128)]
+# olmoe_1b_7b: full depth for serving; 6 of 16 layers for training (2.72 B
+# parameters: 43.6 GB of params, grads and AdamW state)
+OLMOE_TRAIN_LAYERS = 6
+OLMOE_SERVE = dict(n_requests=8, prompt=(16, 65), new_tokens=16)    # ServeLoop of phase 12
+# mixtral_8x7b: 4 of 32 layers (6.07 B parameters, 12.1 GB in bf16);
+# prefill B x S, then decode steps past the 4096 window
+MIXTRAL_LAYERS = 4
+MIXTRAL_PREFILL = (1, 4096)
+MIXTRAL_DECODE = 16
 # (atol, rtol) of kernel vs plain.  f32: tests/test_kernels.py's 2e-5 for
 # summation order.  bf16: both sides compute in f32 from the same bf16
 # inputs and round once to bf16, so they differ by at most one bf16 ulp,
@@ -495,7 +549,8 @@ def cuda_core_bf16_ms(q, k, v, reps: int) -> float:
 
 
 def phase_kernel() -> tuple[dict, list]:
-    """Kernel vs plain at every shape and dtype; times at the main shape."""
+    """Kernel vs plain at every shape and dtype; times at ``TIMED_SHAPES``,
+    keyed (arch, dtype)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     timed, rows = {}, []
@@ -526,7 +581,8 @@ def phase_kernel() -> tuple[dict, list]:
                     row["fault_rejected"] = not bool(torch.allclose(
                         bad, ref.float(), atol=atol, rtol=rtol))
                     del bad
-                if (b, s, h, hkv, hd) == MAIN_SHAPE and causal:
+                arch, timed_dtypes = TIMED_SHAPES.get((b, s, h, hkv, hd), (None, ()))
+                if name in timed_dtypes and causal:
                     reps = 10
                     row["kernel_ms"] = time_ms(
                         lambda: fa.flash_attention_bhsd(q, k, v, causal=True), reps)
@@ -547,7 +603,7 @@ def phase_kernel() -> tuple[dict, list]:
                     row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
                     if name == "bf16":
                         row["cuda_core_kernel_ms"] = cuda_core_bf16_ms(q, k, v, reps)
-                    timed[name] = row
+                    timed[(arch, name)] = row
                 emit("kernel", **row)
                 rows.append(row)
                 check(ok, f"flash_attention_bhsd disagrees with its plain version: {row}")
@@ -1170,13 +1226,15 @@ def phase_prefill(model) -> dict:
     return row
 
 
-def phase_consistency(cfg_full) -> int:
+def phase_consistency(cfg_full, capacity_factor: float = 1.25) -> int:
     """Prefill logits vs decode logits, full width, 4 layers, f32; returns
     the CUDA-core kernel's launches in the prefill, the one path that runs
-    it."""
+    it.  A MoE config runs at ``capacity_factor`` 16, where the prefill
+    drops no token (decode's groups of one token drop none either)."""
     cfg = replace(cfg_full, n_layers=4)
-    b, s = 2, 80                    # S not a multiple of the kernel's 64-row tile
-    model = LM(cfg, param_dtype=torch.float32, seed=SEED, device="cuda")
+    b, s = CONSISTENCY              # S not a multiple of the kernel's 64-row tile
+    model = LM(cfg, param_dtype=torch.float32, capacity_factor=capacity_factor,
+               seed=SEED, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     fa.reset_launch_counts()
@@ -1192,21 +1250,23 @@ def phase_consistency(cfg_full) -> int:
             logits, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
             worst = max(worst, float((logits[:, 0] - full[:, t]).abs().max()))
     err_last = float((logits[:, 0] - last).abs().max())
-    emit("consistency", layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s,
-         dtype="f32", max_abs_err_last=err_last, max_abs_err_all_positions=worst,
-         tol=2e-3, kernel_launches=launches)
+    emit("consistency", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, batch=b,
+         seq=s, dtype="f32", capacity_factor=capacity_factor, max_abs_err_last=err_last,
+         max_abs_err_all_positions=worst, tol=2e-3, kernel_launches=launches)
     check(err_last < 2e-3 and worst < 2e-3,
           f"prefill vs decode logits differ: last {err_last}, all {worst}")
     del model, cache, full
     return launches["cuda_core"]
 
 
-def phase_serve(model) -> dict:
+def phase_serve(model, n_requests: int = 8, prompt=(32, 129), new_tokens: int = 32) -> dict:
+    """``ServeLoop(slots=4)`` answering ``n_requests`` requests with prompts
+    of ``prompt`` (low, high) tokens, ``new_tokens`` each."""
     cfg = model.cfg
     rng = np.random.default_rng(SEED)
     requests = [Request(i, rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
-                        max_new_tokens=32)
-                for i, n in enumerate(rng.integers(32, 129, size=8))]
+                        max_new_tokens=new_tokens)
+                for i, n in enumerate(rng.integers(*prompt, size=n_requests))]
     loop = ServeLoop(model, slots=4, max_len=256)
     for r in requests:
         loop.submit(r)
@@ -1217,22 +1277,26 @@ def phase_serve(model) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     check(len(done) == len(requests), f"{len(done)} of {len(requests)} requests finished")
-    check(all(len(r.out) == 32 for r in done), "a request ended short of 32 tokens")
+    check(all(len(r.out) == new_tokens for r in done),
+          f"a request ended short of {new_tokens} tokens")
     prompt_tokens = sum(len(r.prompt) for r in requests)
-    row = dict(requests=len(done), slots=4, max_len=256, prompt_tokens=prompt_tokens,
-               new_tokens=32 * len(done), seconds=secs,
-               decode_tokens_per_s=32 * len(done) / secs,
-               processed_tokens_per_s=(prompt_tokens + 32 * len(done)) / secs,
+    generated = new_tokens * len(done)
+    row = dict(arch=cfg.name, requests=len(done), slots=4, max_len=256,
+               prompt_tokens=prompt_tokens, new_tokens=generated, seconds=secs,
+               decode_tokens_per_s=generated / secs,
+               processed_tokens_per_s=(prompt_tokens + generated) / secs,
                kernel_launches=dict(fa.flash_attention_bhsd.variant_launches))
     emit("serve", **row)
     return row
 
 
-def profile_window(fn, reps: int, top: int = 6, named: str = "") -> dict:
+def profile_window(fn, reps: int, top: int = 6, named: str = "", ops=()) -> dict:
     """Wall time per call unprofiled, then device time per call and the
     top kernels from ``torch.profiler`` over the same calls (and every
-    kernel whose name contains ``named``).  The device-busy share compares
-    the two: the profiler's own host cost does not enter the wall time."""
+    kernel whose name contains ``named``, and the device time of the
+    kernels launched under each operator in ``ops``, such as
+    ``"aten::bmm"``).  The device-busy share compares the two: the
+    profiler's own host cost does not enter the wall time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     _, secs, gc_secs = timed_call(lambda: [fn() for _ in range(reps)])
@@ -1241,8 +1305,11 @@ def profile_window(fn, reps: int, top: int = 6, named: str = "") -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    per_name = {}
+    per_name, per_op = {}, dict.fromkeys(ops, 0.0)
     for e in prof.key_averages():
+        if e.key in per_op:
+            us = getattr(e, "device_time_total", None)
+            per_op[e.key] += (e.cuda_time_total if us is None else us) / 1e3 / reps
         # device-side entries only: a CPU op's own entry repeats the
         # time of the kernels it launched
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1258,31 +1325,39 @@ def profile_window(fn, reps: int, top: int = 6, named: str = "") -> dict:
                top_device_ms=[[name[:80], ms] for name, ms in ranked])
     if named:
         row["named_device_ms"] = {name[:80]: ms for name, ms in per_name.items() if named in name}
+    if ops:
+        row["op_device_ms"] = per_op
+        row["op_device_share"] = {op: ms / device_ms for op, ms in per_op.items()}
     return row
 
 
-def phase_profile(model) -> None:
-    """Where the time goes in one prefill call and one 4-slot decode step."""
+def phase_profile(model, top: int = 6, ops=()) -> dict:
+    """Where the time goes in one prefill call and one 4-slot decode step
+    (with the device time under each operator of ``ops``); returns the
+    prefill's window."""
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
-    emit("profile", step="prefill", batch=PREFILL[0], seq=PREFILL[1],
-         **profile_window(lambda: serve.prefill(model, tokens), 1))
+    prefill = profile_window(lambda: serve.prefill(model, tokens), 1, top=top, ops=ops)
+    emit("profile", arch=cfg.name, step="prefill", batch=PREFILL[0], seq=PREFILL[1], **prefill)
     cache = model.init_cache(4, 256, dtype=torch.float32)
     tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen, device="cuda")
     pos = torch.tensor([200, 150, 100, 50], device="cuda")
     with torch.no_grad():
         step = lambda: model.decode_step(cache, tok, pos)  # noqa: E731
-        emit("profile", step="decode", slots=4, cache_len=256,
-             **profile_window(step, 10))
+        emit("profile", arch=cfg.name, step="decode", slots=4, cache_len=256,
+             **profile_window(step, 10, top=top, ops=ops))
+    return prefill
 
 
-def flash_row(main_row: dict, checks: list, variant: str, launches: int, path: str) -> dict:
+def flash_row(main_row: dict, checks: list, variant: str, launches: int, path: str,
+              at: str = "") -> dict:
     """The kernels-line entry of one flash kernel: errors over the phase-2
-    rows it served, times at the main shape in the dtype it serves there."""
+    rows it served, times at the main shape in the dtype it serves there;
+    ``at`` names the arch of another layer shape (a second entry)."""
     mine = [r for r in checks if r["variant"] == variant]
     return {
-        "name": f"flash_attention_bhsd[{variant}]",
+        "name": f"flash_attention_bhsd[{variant}]" + (f"@{at}" if at else ""),
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
@@ -1386,9 +1461,10 @@ def flash_counts(**launches) -> dict:
     return {**dict.fromkeys(fa.VARIANTS, 0), **launches}
 
 
-def phase_main_path() -> int:
-    """``serve.main --production``: prefill then greedy decode on the card."""
-    argv = ["--arch", "llama3_8b", "--production", "--batch", str(MAIN_PATH[0]),
+def phase_main_path(arch: str = "llama3_8b") -> int:
+    """``serve.main --production``: prefill then greedy decode on the card;
+    one tensor-core flash launch per layer (the prefill's)."""
+    argv = ["--arch", arch, "--production", "--batch", str(MAIN_PATH[0]),
             "--prompt-len", str(MAIN_PATH[1]), "--tokens", "16"]
     reset_launches()
     t0 = time.perf_counter()
@@ -1398,10 +1474,10 @@ def phase_main_path() -> int:
     emit("serve_main", argv=argv, rc=rc, seconds=time.perf_counter() - t0,
          kernel_launches=launches, wkv_launches=wkv.wkv_bhsd.launches)
     check(rc == 0, f"serve.main exited {rc}")
-    want = get_config("llama3_8b").n_layers    # one launch per layer, one prefill
+    want = get_config(arch).n_layers    # one launch per layer, one prefill
     check(launches == flash_counts(wgmma=want),
           f"kernel launches on the main path {launches}, want {want} of the tensor-core kernel")
-    check(wkv.wkv_bhsd.launches == 0, "the llama path launched the WKV kernel")
+    check(wkv.wkv_bhsd.launches == 0, f"the {arch} path launched the WKV kernel")
     return launches["wgmma"]
 
 
@@ -1541,7 +1617,7 @@ def planted_bwd_fault(q, k, v, do, causal):
 def phase_backward() -> tuple[dict, list]:
     """Both backward kernels vs autograd of the plain version at every
     shape and dtype; the tensor-core one run twice for identical bits;
-    times at the training shape."""
+    times at the training shapes (``TIMED_SHAPES``), keyed (arch, dtype)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     timed, rows = {}, []
@@ -1580,9 +1656,10 @@ def phase_backward() -> tuple[dict, list]:
                                                    for x, r in zip(bad, ref))
                     row["fault_rejected"] = row["fault_limit_ratio"] > 1
                     del bad
-                if (b, s, h, hkv, hd) == MAIN_SHAPE and causal:
+                arch, timed_dtypes = TIMED_SHAPES.get((b, s, h, hkv, hd), (None, ()))
+                if name in timed_dtypes and causal:
                     row.update(backward_times(q, k, v, do, name))
-                    timed[name] = row
+                    timed[(arch, name)] = row
                 emit("backward", **row)
                 rows.append(row)
                 check(row["ok"], f"the backward kernel disagrees with autograd of the plain "
@@ -1701,8 +1778,8 @@ def phase_gradients(cfg_full) -> int:
     errs = {name: float((g - grads_s[name]).abs().max() / grads_s[name].abs().max().clamp(
         min=1e-30)) for name, g in grads_k.items()}
     worst = max(errs, key=errs.get)
-    row = dict(layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s, dtype="f32",
-               loss_kernels=loss_k, loss_scan=loss_s, loss_abs_err=abs(loss_k - loss_s),
+    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s,
+               dtype="f32", loss_kernels=loss_k, loss_scan=loss_s, loss_abs_err=abs(loss_k - loss_s),
                leaves=len(errs), worst_leaf=worst, worst_rel_err=errs[worst],
                median_rel_err=statistics.median(errs.values()), limit=GRAD_TOL,
                kernel_launches=launches, scan_route_flash_launches=scan_launches)
@@ -1716,13 +1793,38 @@ def phase_gradients(cfg_full) -> int:
     return launches["backward"]
 
 
-def train_cell(cfg, read_launches, profile_named: str) -> dict:
+def train_step_timed(trainer, params, opt_state, batch):
+    """One ``Trainer.step_fn`` step after a full collection: (params,
+    opt_state, loss, wall seconds, split ms by phase from CUDA events, the
+    peak memory up to the end of the backward pass in bytes)."""
+    events, peak = {}, {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+        if name == "adamw":             # the allocator's peak so far is host state
+            peak["fwd_bwd"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, metrics = trainer.step_fn(params, opt_state, batch, mark=mark)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    split = {name: events[name].elapsed_time(events[nxt]) for name, nxt in
+             (("forward", "backward"), ("backward", "adamw"), ("adamw", "end"))}
+    return params, opt_state, loss, secs, split, peak["fwd_bwd"]
+
+
+def train_cell(cfg, read_launches, profile_named: str, remats=("full",)) -> dict:
     """Full-width ``cfg`` with bf16 params and f32 AdamW state:
     ``Trainer.step_fn`` on one repeated B x S = ``TRAIN_SHAPE`` batch,
-    timed at the trainer's default AdamW; one ``remat="full"`` step; then
-    fresh weights at peak lr ``TRAIN_LR``, where the loss must fall.  The
-    training main path: the launch counts are reset just before the timed
-    steps and read (``read_launches()``) just after."""
+    timed at the trainer's default AdamW; two steps under each policy of
+    ``remats``; then fresh weights at peak lr ``TRAIN_LR``, where the loss
+    must fall.  The training main path: the launch counts are reset just
+    before the timed steps and read (``read_launches()``) just after.
+    Peaks: the step's, and the forward and backward pass's (read as AdamW
+    starts), where the activations that ``remat`` keeps show."""
     seq, batch_size = TRAIN_SHAPE[1], TRAIN_SHAPE[0]
     with tempfile.TemporaryDirectory() as ckpt_dir:
         trainer = Trainer(cfg, ShapeConfig("train_4k_b1", seq, batch_size, "train"),
@@ -1735,35 +1837,37 @@ def train_cell(cfg, read_launches, profile_named: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        losses, secs, splits = [], [], []
+        losses, secs, splits, fwd_bwd_peaks = [], [], [], []
         for _ in range(TRAIN_STEPS):
-            events = {}
-
-            def mark(name, events=events):
-                events[name] = torch.cuda.Event(enable_timing=True)
-                events[name].record()
-            gc.collect()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt_state, metrics = trainer.step_fn(params, opt_state, batch, mark=mark)
-            losses.append(float(metrics["loss"]))
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            splits.append({name: events[name].elapsed_time(events[nxt]) for name, nxt in
-                           (("forward", "backward"), ("backward", "adamw"), ("adamw", "end"))})
+            params, opt_state, loss, sec, split, fb_peak = train_step_timed(
+                trainer, params, opt_state, batch)
+            losses.append(loss)
+            secs.append(sec)
+            splits.append(split)
+            fwd_bwd_peaks.append(fb_peak)
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         profile = profile_window(lambda: trainer.step_fn(params, opt_state, batch), 1, top=10,
                                  named=profile_named)
-        # one step with every layer recomputed in the backward pass
-        trainer.model.remat = "full"
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        _, remat_secs, _ = timed_call(lambda: trainer.step_fn(params, opt_state, batch))
-        remat_launches = read_launches()
-        remat_peak = torch.cuda.max_memory_allocated()
+        # steps with each layer checkpointed: every layer recomputed
+        # ("full"), or all but its products without a batch dim ("dots")
+        remat = {}
+        for policy in remats:
+            trainer.model.remat = policy
+            runs = []
+            for _ in range(2):
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                params, opt_state, loss, sec, split, fb_peak = train_step_timed(
+                    trainer, params, opt_state, batch)
+                runs.append(dict(loss=loss, step_s=sec, split_ms=split,
+                                 launches=read_launches(),
+                                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                 peak_fwd_bwd_gb=fb_peak / 1e9))
+            remat[policy] = {**runs[-1], "step_s_by_step": [r["step_s"] for r in runs],
+                             "train_tokens_per_s": batch_size * seq / runs[-1]["step_s"]}
         # the falling-loss check: fresh weights and state, peak lr TRAIN_LR
-        del params, opt_state, metrics
+        del params, opt_state
         gc.collect()
         trainer.model.remat = "none"
         trainer.model.init_params(trainer.tcfg.seed)
@@ -1782,11 +1886,11 @@ def train_cell(cfg, read_launches, profile_named: str) -> dict:
                step_seconds=secs, median_step_s=step_s,
                train_tokens_per_s=batch_size * seq / step_s, split_ms=split,
                split_ms_by_step=splits, peak_memory_gb=peak / 1e9,
+               # step 0's: no AdamW has run before it
+               peak_fwd_bwd_gb=fwd_bwd_peaks[0] / 1e9,
                launches=launches, launches_per_step={n: c / TRAIN_STEPS
                                                      for n, c in launches.items()},
-               remat_full=dict(step_s=remat_secs, launches=remat_launches,
-                               peak_memory_gb=remat_peak / 1e9),
-               profile=profile)
+               remat=remat, profile=profile)
     return row
 
 
@@ -1809,9 +1913,9 @@ def phase_train(cfg_full) -> dict:
     want = flash_counts(wgmma=cfg.n_layers * TRAIN_STEPS,
                         backward_wgmma=cfg.n_layers * TRAIN_STEPS)
     check(row["launches"] == want, f"training launches {row['launches']}, want {want}")
-    check(row["remat_full"]["launches"] == flash_counts(wgmma=2 * cfg.n_layers,
-                                                        backward_wgmma=cfg.n_layers),
-          f"remat='full' step launches {row['remat_full']['launches']}")
+    check(row["remat"]["full"]["launches"] == flash_counts(wgmma=2 * cfg.n_layers,
+                                                           backward_wgmma=cfg.n_layers),
+          f"remat='full' step launches {row['remat']['full']['launches']}")
     return row
 
 
@@ -1830,8 +1934,8 @@ def phase_rwkv_train(cfg) -> dict:
             "dout_copies": 0, "flash": 0}
     check(row["launches"] == want, f"RWKV training launches {row['launches']}, want {want}")
     want = {**wkv_counts(chunked=2 * n, backward_chunked=n), "dout_copies": 0, "flash": 0}
-    check(row["remat_full"]["launches"] == want,
-          f"remat='full' RWKV step launches {row['remat_full']['launches']}")
+    check(row["remat"]["full"]["launches"] == want,
+          f"remat='full' RWKV step launches {row['remat']['full']['launches']}")
     return row
 
 
@@ -1889,13 +1993,167 @@ def phase_trainer() -> dict:
     return row
 
 
-def backward_row(main_row: dict, checks: list, variant: str, launches: int, path: str) -> dict:
+# the operators under which the MoE layer's work runs on the card: the
+# expert products (einsum: bmm and its layout copies), the routing's sorts
+# and scatters, the gathers into and out of the expert slots, and the
+# products without a batch dim (projections, router, unembedding)
+MOE_OPS = ("aten::einsum", "aten::bmm", "aten::mm", "aten::sort", "aten::index",
+           "aten::scatter", "aten::scatter_")
+
+
+def moe_drops(model, tokens) -> list:
+    """Each MoE layer's routing in one prefill of ``tokens``, in layer
+    order: the (token, expert) pairs routed and those that no expert slot
+    took at the model's capacity factor."""
+    seen, original = [], moe_mod.moe_ffn
+
+    def counting(params, x, *, top_k, capacity_factor, **kw):
+        route = moe_mod.moe_route(params, x, top_k=top_k, capacity_factor=capacity_factor)
+        seen.append(dict(routed=int((route.routed > 0).sum()), dropped=route.dropped()))
+        return original(params, x, top_k=top_k, capacity_factor=capacity_factor, **kw)
+    moe_mod.moe_ffn = counting
+    try:
+        serve.prefill(model, tokens)
+    finally:
+        moe_mod.moe_ffn = original
+    return seen
+
+
+def phase_olmoe(model) -> dict:
+    """Full olmoe_1b_7b serving: the prefill of phase 4 (16 tensor-core
+    launches a call), the tokens each layer drops, where the time goes, and
+    ``ServeLoop``."""
+    cfg = model.cfg
+    row = phase_prefill(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
+    drops = moe_drops(model, tokens)
+    dropped = [d["dropped"] for d in drops]
+    emit("olmoe_drops", arch=cfg.name, batch=PREFILL[0], seq=PREFILL[1],
+         capacity_factor=model.capacity_factor,
+         capacity=moe_mod.moe_capacity(PREFILL[1], cfg.n_experts, cfg.experts_per_token,
+                                       model.capacity_factor),
+         routed_per_layer=[d["routed"] for d in drops], dropped_per_layer=dropped,
+         dropped_share_per_layer=[d["dropped"] / d["routed"] for d in drops])
+    check(len(drops) == cfg.n_layers and
+          all(d["routed"] == PREFILL[0] * PREFILL[1] * cfg.experts_per_token for d in drops),
+          f"MoE routing counts {drops}")
+    prefill = phase_profile(model, top=10, ops=MOE_OPS)
+    row["profile"] = prefill
+    row["expert_products_share"] = prefill["op_device_share"]["aten::bmm"]
+    row["serve"] = phase_serve(model, **OLMOE_SERVE)
+    return row
+
+
+def phase_olmoe_train(cfg_full) -> dict:
+    """olmoe_1b_7b at full width, ``OLMOE_TRAIN_LAYERS`` layers
+    (:func:`train_cell`): 6 tensor-core flash forwards and backwards a
+    step, twice the forwards under "full" and "dots", the "dots" peaks
+    between "full"'s and "none"'s, and the operators "dots" saved."""
+    cfg = replace(cfg_full, n_layers=OLMOE_TRAIN_LAYERS)
+    saved, policy = {}, transformer_mod._save_dots
+
+    def counting(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute and decision == transformer_mod.CheckpointPolicy.MUST_SAVE:
+            saved[str(op)] = saved.get(str(op), 0) + 1
+        return decision
+    transformer_mod._save_dots = counting
+    try:
+        row = train_cell(cfg, lambda: dict(fa.flash_attention_bhsd.variant_launches), "flash",
+                         remats=("full", "dots"))
+    finally:
+        transformer_mod._save_dots = policy
+    row["dots_saved_ops_per_step"] = {op: n / 2 for op, n in saved.items()}  # two steps
+    emit("olmoe_train", **row)
+    check_training(row)
+    n = cfg.n_layers
+    want = flash_counts(wgmma=n * TRAIN_STEPS, backward_wgmma=n * TRAIN_STEPS)
+    check(row["launches"] == want, f"olmoe training launches {row['launches']}, want {want}")
+    for policy_name in ("full", "dots"):
+        got = row["remat"][policy_name]["launches"]
+        check(got == flash_counts(wgmma=2 * n, backward_wgmma=n),
+              f"remat={policy_name!r} olmoe step launches {got}")
+    # wq, wk, wv, wo and the router: the expert products are bmm
+    check(row["dots_saved_ops_per_step"] == {"aten.mm.default": 5 * n},
+          f"remat='dots' saved {row['dots_saved_ops_per_step']}, want {5 * n} aten.mm")
+    full, dots = row["remat"]["full"], row["remat"]["dots"]
+    for key in ("peak_fwd_bwd_gb", "peak_memory_gb"):
+        check(full[key] <= dots[key] <= row[key],
+              f"{key}: 'dots' {dots[key]} not between 'full' {full[key]} and 'none' {row[key]}")
+    return row
+
+
+def phase_mixtral(cfg_full) -> dict:
+    """mixtral_8x7b at full width, ``MIXTRAL_LAYERS`` layers, bf16: a
+    prefill whose 4096 window masks nothing (the tensor-core kernel, GQA
+    32/8), its k/v written into a decode cache, then decode steps past the
+    window, which ``decode_attention`` masks."""
+    cfg = replace(cfg_full, n_layers=MIXTRAL_LAYERS)
+    model = LM(cfg, seed=SEED, device="cuda")        # bf16
+    check(model.period == 1, f"mixtral's layer period {model.period}")
+    b, s = MIXTRAL_PREFILL
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    captured, original = [], transformer_mod.attn.gqa_attention
+
+    def capturing(q, k, v, **kw):
+        captured.append((k, v))
+        return original(q, k, v, **kw)
+    reset_launches()
+    transformer_mod.attn.gqa_attention = capturing
+    try:
+        logits, secs, gc_secs = timed_call(lambda: serve.prefill(model, tokens))
+    finally:
+        transformer_mod.attn.gqa_attention = original
+    launches = dict(fa.flash_attention_bhsd.variant_launches)
+    check(launches == flash_counts(wgmma=cfg.n_layers),
+          f"mixtral prefill launches {launches}, want {cfg.n_layers} of the tensor-core kernel")
+    check(bool(torch.isfinite(logits).all()), "mixtral prefill logits are not finite")
+    # what a prefill that fills the cache would leave there: every layer's
+    # rotated k and its v at positions 0 .. S-1
+    cache = model.init_cache(b, s + MIXTRAL_DECODE)
+    for r, (k, v) in enumerate(captured):
+        cache[0]["k"][r, :, :s] = k
+        cache[0]["v"][r, :, :s] = v
+    del captured
+    tok = logits.argmax(dim=-1, keepdim=True)
+    reset_launches()
+    steps, masked = [], []
+    with torch.no_grad():
+        for t in range(MIXTRAL_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(cache, tok, s + t)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(lg).all()), f"mixtral decode step {t} logits not finite")
+            tok = lg[:, -1:].argmax(dim=-1)
+            # keys at or before (cache length - 1) - window fall outside it
+            masked.append(max(0, s + t - cfg.sliding_window + 1))
+    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, params=sum(
+        p.numel() for p in model.parameters()), batch=b, seq=s, window=cfg.sliding_window,
+        dtype="bf16", prefill_seconds=secs, prefill_gc_seconds=gc_secs,
+        prefill_tokens_per_s=b * s / secs, prefill_launches=launches,
+        decode_steps=MIXTRAL_DECODE, decode_step_ms_median=statistics.median(steps) * 1e3,
+        decode_flash_launches=fa.flash_attention_bhsd.launches,
+        keys_masked_by_window_per_step=masked)
+    emit("mixtral", **row)
+    check(masked[0] >= 1, "the decode steps never reach past the window")
+    check(fa.flash_attention_bhsd.launches == 0, "mixtral decode launched a flash kernel")
+    del model, cache
+    return row
+
+
+def backward_row(main_row: dict, checks: list, variant: str, launches: int, path: str,
+                 at: str = "") -> dict:
     """The kernels-line entry of one backward kernel: errors over the
     phase-8 rows it served, times at the training shape in the dtype it
-    serves there."""
+    serves there; ``at`` names the arch of another layer shape (a second
+    entry)."""
     mine = [r for r in checks if r["backward_kernel"] == variant]
     row = {
-        "name": f"flash_attention_bwd[{variant}]",
+        "name": f"flash_attention_bwd[{variant}]" + (f"@{at}" if at else ""),
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:82",
@@ -1979,11 +2237,32 @@ def main() -> int:
     rwkv_train = phase_rwkv_train(rwkv_cfg)
     torch.cuda.empty_cache()
     trainer = phase_trainer()
+    torch.cuda.empty_cache()
 
-    kernels = [flash_row(timed["bf16"], checks, "wgmma", launches,
+    olmoe_cfg = get_config("olmoe_1b_7b")
+    model = LM(olmoe_cfg, seed=SEED, device="cuda")  # bf16, full depth
+    phase_olmoe(model)
+    del model
+    torch.cuda.empty_cache()
+    olmoe_launches = phase_main_path("olmoe_1b_7b")
+    torch.cuda.empty_cache()
+    olmoe_train = phase_olmoe_train(olmoe_cfg)
+    torch.cuda.empty_cache()
+    phase_consistency(olmoe_cfg, capacity_factor=16.0)
+    torch.cuda.empty_cache()
+    phase_gradients(olmoe_cfg)
+    torch.cuda.empty_cache()
+    phase_mixtral(get_config("mixtral_8x7b"))
+
+    olmoe = "olmoe_1b_7b"
+    kernels = [flash_row(timed[("llama3_8b", "bf16")], checks, "wgmma", launches,
                          "every llama3_8b prefill (serve.main --production)"),
-               flash_row(timed["f32"], checks, "cuda_core", cuda_core_launches,
-                         "the 4-layer f32 prefill of phase 5")]
+               flash_row(timed[("llama3_8b", "f32")], checks, "cuda_core", cuda_core_launches,
+                         "the 4-layer f32 prefill of phase 5"),
+               flash_row(timed[(olmoe, "bf16")], [r for r in checks if r["shape"][2:4] == [16, 16]],
+                         "wgmma", olmoe_launches,
+                         "every olmoe_1b_7b prefill (serve.main --arch olmoe_1b_7b --production)",
+                         at=olmoe)]
     main_decode = (RWKV_MAIN_PATH[0], 1, *WKV_MAIN[2:])
     kernels += [wkv_row(wkv_timed["bf16"], wkv_checks, "chunked", wkv_launches["chunked"],
                         "every rwkv6_1b6 bf16 prefill (serve.main --production)"),
@@ -1992,12 +2271,17 @@ def main() -> int:
                         "every rwkv6_1b6 decode step (serve.main --production)",
                         at_prefill_ms=wkv_timed["bf16"]["sequential_kernel_ms"],
                         decode_batch4=wkv_timed[("decode", WKV_DECODE[0])])]
-    kernels += [backward_row(bwd_timed["bf16"], bwd_checks, "backward_wgmma",
+    kernels += [backward_row(bwd_timed[("llama3_8b", "bf16")], bwd_checks, "backward_wgmma",
                              train["launches"]["backward_wgmma"],
                              f"every full-width llama3_8b train step ({TRAIN_LAYERS} "
                              f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)"),
-                backward_row(bwd_timed["f32"], bwd_checks, "backward", grad_launches,
-                             "the 4-layer f32 loss gradient of phase 9"),
+                backward_row(bwd_timed[("llama3_8b", "f32")], bwd_checks, "backward",
+                             grad_launches, "the 4-layer f32 loss gradient of phase 9"),
+                backward_row(bwd_timed[(olmoe, "bf16")],
+                             [r for r in bwd_checks if r["shape"][2:4] == [16, 16]],
+                             "backward_wgmma", olmoe_train["launches"]["backward_wgmma"],
+                             f"every full-width olmoe_1b_7b train step ({OLMOE_TRAIN_LAYERS} "
+                             f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)", at=olmoe),
                 wkv_bwd_row(wkv_bwd_timed["bf16"], wkv_bwd_checks, "backward_chunked",
                             rwkv_train["launches"]["backward_chunked"],
                             f"every full-width rwkv6_1b6 train step ({rwkv_cfg.n_layers} "

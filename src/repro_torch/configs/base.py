@@ -3,8 +3,8 @@
 The port's own copy of ``ModelConfig``, ``get_config`` and
 ``get_smoke_config`` from the JAX package's ``configs/base.py``: the
 port imports nothing of that package.  Only the architectures that the
-port runs are listed (the dense decoders and RWKV6); the others arrive
-with their slices.
+port runs are listed (the dense and MoE decoders and RWKV6); the others
+arrive with their slices.
 ``ShapeConfig`` (a batch shape: sequence length, global batch, kind) is
 copied too, for the trainer.
 Each module defines ``CONFIG`` (published dims) and ``smoke_config()``
@@ -177,6 +177,8 @@ class ShapeConfig:
 
 
 ARCH_IDS = (
+    "mixtral_8x7b",
+    "olmoe_1b_7b",
     "minitron_4b",
     "granite_8b",
     "qwen25_32b",
@@ -186,6 +188,8 @@ ARCH_IDS = (
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES.update({
+    "mixtral-8x7b": "mixtral_8x7b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "minitron-4b": "minitron_4b",
     "granite-8b": "granite_8b",
     "qwen2.5-32b": "qwen25_32b",

@@ -9,8 +9,8 @@ rerun on the same ``--ckpt-dir`` resumes from the latest checkpoint
 (:func:`~repro_torch.runtime.run_with_restarts` is the supervisor for
 callers that want the restart in-process).  The JAX
 launcher's ``--production`` lowers the full-size train step against the
-production mesh; that dry run arrives with the port's step builders
-(ROADMAP slice 11), and here the flag raises.
+production mesh; that dry run arrives with the port's dry-run slice
+(ROADMAP queue 1), and here the flag raises.
 
 Example::
 
@@ -52,7 +52,7 @@ def main(argv=None) -> int:
     if args.production:
         raise NotImplementedError(
             "--production lowers the full-size train step against the production "
-            "mesh; the port's step builders and dry run arrive with ROADMAP slice 11")
+            "mesh; that dry run arrives with the dry-run slice (ROADMAP queue 1)")
 
     cfg = get_smoke_config(args.arch)
     shape = ShapeConfig("smoke_train", args.seq_len, args.batch, "train")

@@ -124,16 +124,18 @@ def gqa_attention(q, k, v, *, causal: bool = True, chunk: int = 512,
     """Self-attention; q [B,S,Hq,hd], k/v [B,S,Hkv,hd].
 
     CPU tensors run the chunked scan (``chunk`` is its KV chunk).  Other
-    devices run the Hopper kernel, which has no sliding window: a window
-    there raises rather than silently attending to the whole prefix.
+    devices run the Hopper kernel, which has no sliding window.  A window
+    of at least S masks no key (every key k of query q has k > q - S), so
+    the kernel computes the same function there; a window shorter than S
+    raises rather than silently attending to the whole prefix.
     """
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     if q.device.type != "cpu":
-        if sliding_window > 0:
+        if 0 < sliding_window < s:
             raise NotImplementedError(
-                "the Hopper flash kernel has no sliding window; windowed "
-                "attention on the card waits for a kernel that masks it")
+                f"the Hopper flash kernel has no sliding window; a window of "
+                f"{sliding_window} < S = {s} waits for a kernel that masks it")
         return ops.flash_attention(q, k, v, causal=causal)
     groups = hq // hkv
     chunk = min(chunk, s)

@@ -1,12 +1,13 @@
 """Decoder LM — port of ``repro/models/transformer.py``.
 
-The port has the dense attention path (llama3_8b, granite_8b,
-minitron_4b, qwen25_32b) and the attention-free RWKV6 path
-(rwkv6_1b6), each with serving (``forward``, ``decode_step``; the
-attention cache in bf16 or, with ``kv_dtype="int8"``, quantized) and the
-training loss (``loss``, with ``remat`` "none" or "full").  MoE, Mamba,
-cross-attention and encoder–decoder layers and the "dots" remat policy
-arrive with their own slices; a config that needs them raises here.
+The port has the attention path with a dense FFN (llama3_8b,
+granite_8b, minitron_4b, qwen25_32b) or a MoE one (olmoe_1b_7b,
+mixtral_8x7b) and the attention-free RWKV6 path (rwkv6_1b6), each with
+serving (``forward``, ``decode_step``; the attention cache in bf16 or,
+with ``kv_dtype="int8"``, quantized) and the training loss (``loss``,
+with ``remat`` "none", "full" or "dots").  Mamba, cross-attention and
+encoder–decoder layers arrive with their own slices; a config that needs
+them raises here.
 
 The parameters keep the JAX tree's key paths and layouts, so weights
 map 1:1 (:mod:`repro_torch.convert`): ``embed``, ``final_norm``,
@@ -20,15 +21,18 @@ WKV recurrence's the WKV backward kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
+from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .layers import (Initializer, apply_rope, embed, resolve_device,
                      rms_norm, rope_frequencies, swiglu, unembed)
@@ -57,9 +61,20 @@ def _later_slice(cfg: ModelConfig, spec: LayerSpec) -> str | None:
         return "cross-attention / encoder-decoder"
     if spec.kind == "mamba":
         return "SSM"
-    if spec.moe:
-        return "MoE"
     return None
+
+
+# JAX's ``checkpoint_dots_with_no_batch_dims``: the products without a
+# batch dim (``x @ W`` on a [B, S, d] x folds its leading dims and runs as
+# ``aten.mm``) are saved; everything else, ``aten.bmm`` (attention's
+# score and value products on the CPU, the MoE expert products with the
+# expert as batch dim) and the flash kernel included, is recomputed.
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -114,32 +129,32 @@ class LM(nn.Module):
     :func:`repro_torch.convert.load_jax_params`).  ``attn_chunk`` is the
     KV chunk of the CPU attention scan and ``rwkv_chunk`` the chunk of
     the CPU WKV (:func:`repro_torch.models.rwkv.wkv_chunked`); on the
-    card both run kernels.  ``max_seq`` sizes the RoPE table that decode
-    reads (default 8192).  ``remat`` is the activation checkpointing of
-    each layer under a loss: "none" saves every layer's activations,
-    "full" recomputes each layer in the backward pass (JAX's
-    ``jax.checkpoint`` of the layer body); JAX's "dots" policy is not
-    ported.  ``kv_dtype="int8"`` stores the attention decode cache
-    quantized (per-token, per-head absmax scales); any other value keeps
-    it in the cache's dtype, as in JAX.
+    card both run kernels.  ``capacity_factor`` sizes each expert's
+    capacity in MoE layers (:func:`repro_torch.models.moe.moe_capacity`).
+    ``max_seq`` sizes the RoPE table that decode reads (default 8192).
+    ``remat`` is the activation checkpointing of each layer under a loss:
+    "none" saves every layer's activations, "full" recomputes each layer
+    in the backward pass (JAX's ``jax.checkpoint`` of the layer body),
+    "dots" saves the outputs of the products without a batch dim and
+    recomputes the rest (JAX's ``checkpoint_dots_with_no_batch_dims``).
+    ``kv_dtype="int8"`` stores the attention decode cache quantized
+    (per-token, per-head absmax scales); any other value keeps it in the
+    cache's dtype, as in JAX.
     """
 
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.bfloat16,
-                 attn_chunk: int = 512, max_seq: int = 0,
-                 rwkv_chunk: int = 16, remat: str = "none",
+                 attn_chunk: int = 512, capacity_factor: float = 1.25,
+                 max_seq: int = 0, rwkv_chunk: int = 16, remat: str = "none",
                  kv_dtype: str = "bf16", seed: int = 0,
                  device="cuda") -> None:
         super().__init__()
         device = resolve_device(device)
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save the matmul outputs, recompute the rest) is "
-                "not ported yet; use 'none' or 'full'")
-        if remat not in ("none", "full"):
-            raise ValueError(f"remat must be 'none' or 'full', not {remat!r}")
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be 'none', 'full' or 'dots', not {remat!r}")
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.attn_chunk = attn_chunk
+        self.capacity_factor = capacity_factor
         self.max_seq = max_seq or 8192
         self.rwkv_chunk = rwkv_chunk
         self.remat = remat
@@ -202,15 +217,16 @@ class LM(nn.Module):
     def _init_layer(self, init: Initializer, spec: LayerSpec) -> dict:
         cfg = self.cfg
         d = cfg.d_model
-        return {
-            "mixer": self._init_mixer(init, spec),
-            "ffn_norm": init.ones((d,)),
-            "ffn": {
+        p = {"mixer": self._init_mixer(init, spec), "ffn_norm": init.ones((d,))}
+        if spec.moe:
+            p["moe"] = moe_mod.init_moe(init, d, cfg.d_ff, cfg.n_experts)
+        else:
+            p["ffn"] = {
                 "w_gate": init.normal((d, cfg.d_ff), fan_in=d),
                 "w_up": init.normal((d, cfg.d_ff), fan_in=d),
                 "w_down": init.normal((cfg.d_ff, d), fan_in=cfg.d_ff),
-            },
-        }
+            }
+        return p
 
     def init_params(self, seed: int, device=None) -> None:
         """Draw every parameter anew from ``seed``, as construction does
@@ -275,15 +291,20 @@ class LM(nn.Module):
         o = o.reshape(b, s, cfg.n_heads * cfg.hd)
         return o @ p["wo"].to(x.dtype)
 
-    def _ffn(self, p, x):
-        h = rms_norm(x, p["ffn_norm"], self.cfg.norm_eps)
+    def _ffn(self, p, spec, x):
+        """(FFN output, MoE aux loss: 0.0 for a dense FFN)."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        if spec.moe:
+            return moe_mod.moe_ffn(p["moe"], h, top_k=cfg.experts_per_token,
+                                   capacity_factor=self.capacity_factor)
         f = p["ffn"]
         return swiglu(h, f["w_gate"].to(x.dtype), f["w_up"].to(x.dtype),
-                      f["w_down"].to(x.dtype))
+                      f["w_down"].to(x.dtype)), 0.0
 
     def _layer_seq(self, p, spec, x, cos_sin, positions):
-        """Full-sequence layer (prefill).  The JAX layer also returns its
-        k/v, which prefill drops; so does this one."""
+        """Full-sequence layer (prefill): (x, aux).  The JAX layer also
+        returns its k/v, which prefill drops; so does this one."""
         cfg = self.cfg
         if spec.kind == "rwkv":
             h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
@@ -291,27 +312,33 @@ class LM(nn.Module):
                                       cfg.norm_eps, chunk=self.rwkv_chunk)
         else:
             x = x + self._self_attn(p["mixer"], x, cos_sin, positions)
-        return x + self._ffn(p, x)
+        y, aux = self._ffn(p, spec, x)
+        return x + y, aux
 
     # ------------------------------------------------------------------ #
     # forward (prefill logits)
     # ------------------------------------------------------------------ #
-    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Final-norm hidden states [B, S, d]."""
+    def hidden_states(self, tokens: torch.Tensor):
+        """(final-norm hidden states [B, S, d], MoE aux loss summed over
+        the layers: 0.0 without MoE layers)."""
         x = embed(self.embed, tokens).to(self.param_dtype)
         s = x.shape[1]
         cos_sin = self._rope(max(s, 1))
         positions = torch.arange(s, device=x.device)[None, :]
+        remat = {"full": {}, "dots": {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}}.get(self.remat)
+        aux_total = 0.0
         # position-major like the JAX scan: every repeat of position 0,
-        # then of position 1, ...
+        # then of position 1, ..., the aux summed in that order
         for spec, block in zip(self.specs, self.blocks):
             for r in range(self.n_rep):
-                if self.remat == "full":
-                    x = checkpoint(self._rep_layer, block, r, spec, x, cos_sin,
-                                   positions, use_reentrant=False)
+                if remat is None:
+                    x, aux = self._layer_seq(block.rep(r), spec, x, cos_sin, positions)
                 else:
-                    x = self._layer_seq(block.rep(r), spec, x, cos_sin, positions)
-        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+                    x, aux = checkpoint(self._rep_layer, block, r, spec, x, cos_sin,
+                                        positions, use_reentrant=False, **remat)
+                aux_total = aux_total + aux
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux_total
 
     def _rep_layer(self, block, r, spec, x, cos_sin, positions):
         # the repeat's views are taken inside, so the checkpoint saves
@@ -324,7 +351,7 @@ class LM(nn.Module):
         ``last_only`` avoids materializing the [B, S, V] logits tensor —
         serving prefill only needs the final position.
         """
-        x = self.hidden_states(tokens)
+        x, _ = self.hidden_states(tokens)
         if last_only:
             x = x[:, -1:]
         return unembed(x, self._table())
@@ -342,12 +369,11 @@ class LM(nn.Module):
         position and the divisor is at least 1; a label outside [0, V)
         matches no vocabulary entry (``jax.nn.one_hot`` gives a zero row),
         so its position adds the chunk's log-sum-exp alone; the MoE
-        load-balancing term is added at 0.01 (0 without MoE layers).
+        load-balancing loss, summed over the layers, is added at 0.01.
         Each chunk is checkpointed, as ``@jax.checkpoint`` does there, so
         no chunk's [B, c, V] logits are saved for the backward pass.
         """
-        x = self.hidden_states(batch["tokens"])
-        aux = 0.0                       # no MoE layers: no aux loss
+        x, aux = self.hidden_states(batch["tokens"])
         labels = batch["labels"]
         table = self._table()
         b, s, _ = x.shape
@@ -428,7 +454,7 @@ class LM(nn.Module):
             for name, t in new.items():
                 cache[name][r].copy_(t)
             x = x + o
-            return x + self._ffn(p, x)
+            return x + self._ffn(p, spec, x)[0]
         b = x.shape[0]
         h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
         q, k, v = self._qkv(p["mixer"], h)
@@ -456,7 +482,9 @@ class LM(nn.Module):
                                   sliding_window=cfg.sliding_window)
         o = o.reshape(b, 1, cfg.n_heads * cfg.hd)
         x = x + o @ p["mixer"]["wo"].to(x.dtype)
-        return x + self._ffn(p, x)
+        # a MoE layer routes the [B, 1, d] step as JAX does: B groups of
+        # one token, each expert's capacity 1
+        return x + self._ffn(p, spec, x)[0]
 
     def decode_step(self, cache: list, tokens: torch.Tensor, pos):
         """Logits [B, 1, V] (f32) for one new token per row.

@@ -8,7 +8,8 @@ boundaries.  Prompts are fed through the decode step one token at a
 time, as in the JAX loop.
 
 Restriction: attention-cache architectures only (Mamba/RWKV slots would
-need per-slot state resets).
+need per-slot state resets).  MoE layers keep no per-slot state: the
+decode step routes each slot's token on its own.
 """
 from __future__ import annotations
 

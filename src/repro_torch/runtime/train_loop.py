@@ -46,8 +46,8 @@ class Trainer:
 
     The model's parameters are drawn from ``tcfg.seed`` (f32 unless
     ``param_dtype`` says otherwise) and require grad; ``remat`` is
-    "none", as in the JAX trainer (set ``trainer.model.remat = "full"``
-    to recompute layers instead).
+    "none", as in the JAX trainer (set ``trainer.model.remat`` to
+    "full" or "dots" to recompute layers instead).
     """
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,

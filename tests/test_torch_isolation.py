@@ -27,6 +27,8 @@ def _port_modules():
 def test_every_module_imports_with_jax_and_repro_blocked():
     modules = _port_modules()
     for name in ("repro_torch.models.transformer", "repro_torch.models.rwkv",
+                 "repro_torch.models.moe", "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.mixtral_8x7b",
                  "repro_torch.kernels.rwkv_wkv", "repro_torch.configs.rwkv6_1b6",
                  "repro_torch.data.pipeline", "repro_torch.optim.adamw",
                  "repro_torch.optim.schedules", "repro_torch.checkpoint.checkpointer",

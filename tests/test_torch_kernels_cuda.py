@@ -37,6 +37,8 @@ from repro_torch.kernels import (flash_attention, flash_attention_bhsd,
                                  flash_attention_bhsd_plain, rwkv_wkv, wkv_bhsd,
                                  wkv_bhsd_plain)
 from repro_torch.kernels.flash_attention import backward_variant, kernel_variant
+from repro_torch.models import attention as attention_mod
+from repro_torch.models.moe import moe_ffn, moe_route
 
 # the modules: the package's ``flash_attention`` and ``rwkv_wkv`` are the
 # model-layout functions
@@ -57,6 +59,7 @@ _SHAPES = [
     (1, 4096, 4, 1, 128),
     (2, 300, 8, 2, 64),
     (2, 300, 8, 2, 128),
+    (1, 4096, 16, 16, 128),  # olmoe_1b_7b's MHA at its training length
 ]
 
 
@@ -233,11 +236,12 @@ def test_flash_backward_rejects_what_it_does_not_take(card):
 
 # The tensor-core backward: its 128-row dQ tiles and 128-key dK/dV blocks
 # with 64-row q steps, one row, one short of and one past each, ragged S
-# over many tiles, GQA 4:1 at both head dims, and the training shape's
-# heads at S=4096.
+# over many tiles, GQA 4:1 at both head dims, and the training shapes'
+# heads at S=4096 (llama3_8b's GQA 32/8, olmoe_1b_7b's MHA 16/16).
 _WGMMA_BWD_SHAPES = [(1, 1, 4, 1, 128), (1, 63, 4, 1, 64), (1, 65, 4, 1, 128),
                      (1, 127, 4, 1, 64), (1, 129, 4, 1, 128), (2, 300, 8, 2, 64),
-                     (1, 1000, 8, 2, 128), (1, 1000, 16, 4, 64), (1, 4096, 32, 8, 128)]
+                     (1, 1000, 8, 2, 128), (1, 1000, 16, 4, 64), (1, 4096, 32, 8, 128),
+                     (1, 4096, 16, 16, 128)]
 
 
 @pytest.mark.cuda
@@ -762,3 +766,58 @@ def test_wkv_chunked_backward_rejects_and_copies(card):
     got = wkvk.wkv_bhsd_bwd(*args, dout_off)
     assert wkv_bhsd.dout_copies == copies + 1
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [300, 301, 4096])
+def test_gqa_attention_with_a_window_of_at_least_s_takes_the_kernel(card, window):
+    """A sliding window of at least S masks no key, so ``gqa_attention``
+    on the card runs the flash kernel, and equals the chunked scan with
+    that window (f32: the kernel's limit against its plain version)."""
+    gen = torch.Generator(device=card).manual_seed(window)
+    q = torch.randn((1, 300, 8, 128), generator=gen, device=card)
+    k, v = (torch.randn((1, 300, 2, 128), generator=gen, device=card) for _ in range(2))
+    before = flash_attention_bhsd.launches
+    out = attention_mod.gqa_attention(q, k, v, sliding_window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.launches == before + 1
+    og = attention_mod._chunked_gqa(q.reshape(1, 300, 2, 4, 128), k, v, causal=True,
+                                    chunk=128, sliding_window=window)
+    torch.testing.assert_close(out, og.reshape(q.shape), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_gqa_attention_with_a_window_shorter_than_s_raises(card):
+    q = torch.randn((1, 300, 8, 128), device=card)
+    kv = torch.randn((1, 300, 2, 128), device=card)
+    before = flash_attention_bhsd.launches
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        attention_mod.gqa_attention(q, kv, kv, sliding_window=299)
+    assert flash_attention_bhsd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,t,d,f,e,k", [(2, 16, 64, 96, 8, 2), (4, 1, 64, 96, 8, 2),
+                                         (1, 512, 256, 128, 64, 8)])
+def test_moe_ffn_on_the_card_matches_the_cpu_and_is_bit_equal_on_two_calls(card, g, t, d,
+                                                                            f, e, k):
+    """f32 (TF32 off): the card's moe_ffn against its own CPU result, at the
+    CPU parity bar (1e-5; the products sum in another order), the same
+    tokens in every expert slot, and two calls on the card bit-equal (the
+    combine is a gather: no float atomics)."""
+    gen = torch.Generator().manual_seed(g * t + e)
+    p = {"router": torch.randn((d, e), generator=gen) / d ** 0.5,
+         "w_gate": torch.randn((e, d, f), generator=gen) / d ** 0.5,
+         "w_up": torch.randn((e, d, f), generator=gen) / d ** 0.5,
+         "w_down": torch.randn((e, f, d), generator=gen) / f ** 0.5}
+    x = torch.randn((g, t, d), generator=gen)
+    ref_y, ref_aux = moe_ffn(p, x, top_k=k)
+    pc = {name: w.to(card) for name, w in p.items()}
+    first = moe_ffn(pc, x.to(card), top_k=k)
+    second = moe_ffn(pc, x.to(card), top_k=k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first[0].cpu(), ref_y, atol=1e-5, rtol=1e-5)
+    assert abs(float(first[1]) - float(ref_aux)) <= 1e-6
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(moe_route(pc, x.to(card), top_k=k).sel_tok.cpu(),
+                       moe_route(p, x, top_k=k).sel_tok)

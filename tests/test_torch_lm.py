@@ -1,8 +1,12 @@
-"""Port parity: the dense ``LM`` on weights carried from JAX ``LM.init``.
+"""Port parity: the dense and MoE ``LM`` on weights carried from JAX
+``LM.init``.
 
 f32 on the CPU.  Logits agree with JAX to 1e-4 (the stack of matmuls
 sums in another order); the port's own decode agrees with its forward to
-2e-3, the bar of ``tests/test_archs_smoke.py::test_decode_matches_forward``.
+2e-3, the bar of ``tests/test_archs_smoke.py::test_decode_matches_forward``,
+at its capacity factor of 16, where no MoE token is dropped.  The
+forward runs at the default capacity factor of 1.25, where the smoke MoE
+configs drop tokens, as JAX's does.
 """
 from dataclasses import replace
 
@@ -15,7 +19,7 @@ import torch
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import LM as JaxLM
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.convert import flatten_tree, load_jax_params, to_numpy_tree
 from repro_torch.models import LM
 
@@ -25,15 +29,18 @@ _CFGS = {
     "llama3_8b_deep_mqa": replace(get_smoke_config("llama3_8b"), n_layers=3,
                                   n_heads=2, n_kv_heads=1),
     "qwen25_32b": get_smoke_config("qwen25_32b"),      # qkv bias, 5:1, hd 16
+    "olmoe_1b_7b": get_smoke_config("olmoe_1b_7b"),    # MoE, 8 experts top-2
+    "mixtral_8x7b": get_smoke_config("mixtral_8x7b"),  # MoE, 4 experts top-2, GQA
 }
 
 
-def _pair(name, max_seq=32):
+def _pair(name, max_seq=32, capacity_factor=1.25):
     cfg = _CFGS[name]
-    jm = JaxLM(cfg, param_dtype=jnp.float32, attn_chunk=8, max_seq=max_seq)
+    jm = JaxLM(cfg, param_dtype=jnp.float32, attn_chunk=8, max_seq=max_seq,
+               capacity_factor=capacity_factor)
     tree = jax.tree.map(np.asarray, jm.init(0))
     tm = LM(cfg, param_dtype=torch.float32, attn_chunk=8, max_seq=max_seq,
-            device="cpu")
+            capacity_factor=capacity_factor, device="cpu")
     load_jax_params(tm, tree)
     return cfg, jm, jax.tree.map(jnp.asarray, tree), tm, tree
 
@@ -43,8 +50,8 @@ def _tokens(cfg, bsz=2, seq=12, seed=1):
 
 
 def test_configs_are_copies():
-    for arch in ("llama3_8b", "qwen25_32b", "granite_8b", "minitron_4b",
-                 "rwkv6_1b6"):
+    assert len(ARCH_IDS) == 7
+    for arch in ARCH_IDS:
         assert get_smoke_config(arch).__dict__ == jax_smoke_config(arch).__dict__
         assert get_config(arch).__dict__ == jax_config(arch).__dict__
 
@@ -75,7 +82,7 @@ def test_forward_matches_jax(name):
 
 @pytest.mark.parametrize("name", sorted(_CFGS))
 def test_decode_matches_jax_and_forward(name):
-    cfg, jm, jparams, tm, _ = _pair(name)
+    cfg, jm, jparams, tm, _ = _pair(name, capacity_factor=16.0)
     tokens = _tokens(cfg)
     jstep = jax.jit(jm.decode_step)
     jcache = jm.init_cache(2, 32, dtype=jnp.float32)
@@ -113,7 +120,6 @@ def test_decode_with_per_slot_positions_matches_jax():
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    (dict(n_experts=4, experts_per_token=2), "MoE"),
     (dict(attn_layer_period=2), "SSM"),
     (dict(cross_attn_period=2, frontend_tokens=4, frontend_dim=64),
      "cross-attention"),

@@ -2,7 +2,8 @@
 
 The port's loop, on weights carried from JAX ``LM.init``, must emit
 exactly the JAX loop's tokens (greedy argmax over f32 logits that agree
-to 1e-4), and keep the JAX loop's own invariants.
+to 1e-4), and keep the JAX loop's own invariants.  The MoE archs take the
+same loop: their decode step routes each slot's token on its own.
 """
 import jax
 import jax.numpy as jnp
@@ -105,4 +106,26 @@ def test_greedy_decode_tokens_equal_jax(models):
 
 def test_serve_main_on_cpu():
     assert serve.main(["--arch", "llama3_8b", "--device", "cpu",
+                       "--prompt-len", "6", "--tokens", "4"]) == 0
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "mixtral_8x7b"])
+def test_moe_serve_loop_tokens_equal_jax(arch):
+    cfg = get_smoke_config(arch)
+    jm = JaxLM(cfg, param_dtype=jnp.float32, attn_chunk=8, max_seq=64)
+    tree = jax.tree.map(np.asarray, jm.init(0))
+    tm = LM(cfg, param_dtype=torch.float32, attn_chunk=8, max_seq=64, device="cpu")
+    load_jax_params(tm, tree)
+    prompts = _prompts(cfg, 4, (3, 6, 5))
+    jloop = JaxServeLoop(jm, jax.tree.map(jnp.asarray, tree), slots=2, max_len=48)
+    for i, p in enumerate(prompts):
+        jloop.submit(JaxRequest(i, p, max_new_tokens=5))
+    ref = {r.rid: list(r.out) for r in jloop.run()}
+    got = _serve(tm, [Request(i, p, max_new_tokens=5) for i, p in enumerate(prompts)],
+                 slots=2)
+    assert got == ref and all(len(v) == 5 for v in got.values())
+
+
+def test_serve_main_moe_on_cpu():
+    assert serve.main(["--arch", "olmoe_1b_7b", "--device", "cpu",
                        "--prompt-len", "6", "--tokens", "4"]) == 0

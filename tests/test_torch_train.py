@@ -7,8 +7,11 @@ absolute (about 2e-6 of its value, ln V ~ 6); every gradient leaf to
 atol 5e-5 and rtol 1e-4.  Both sides run the same graph in f32 and sum
 in other orders; the largest difference seen is 1e-5 (rwkv6_1b6, whose
 chunked WKV also orders its chunk sums otherwise), against leaves whose
-largest entries are 0.3-1.6.  The port's ``remat="full"`` recomputes the
-same operations on the same inputs, so it equals ``"none"`` exactly.
+largest entries are 0.3-1.6.  The MoE archs run at the default capacity
+factor of 1.25, where the smoke configs drop tokens; their loss carries
+0.01 of the summed load-balancing loss.  The port's ``remat="full"`` and
+``"dots"`` recompute the same operations on the same inputs, so they
+equal ``"none"`` exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -20,8 +23,10 @@ from repro.models import LM as JaxLM
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import flatten_tree, load_jax_params, param_tree, tree_map
 from repro_torch.models import LM
+from repro_torch.models import transformer as transformer_mod
 
-_ARCHS = ["llama3_8b", "granite_8b", "minitron_4b", "qwen25_32b", "rwkv6_1b6"]
+_ARCHS = ["llama3_8b", "granite_8b", "minitron_4b", "qwen25_32b", "rwkv6_1b6",
+          "olmoe_1b_7b", "mixtral_8x7b"]
 _LOSS_TOL = dict(atol=1e-5, rtol=0.0)
 _GRAD_TOL = dict(atol=5e-5, rtol=1e-4)
 
@@ -110,18 +115,52 @@ def test_loss_rules_match_jax(case, vocab_chunk):
         assert float(loss) == 0.0
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_1b6"])
-def test_remat_full_equals_none(arch):
+def _assert_remat_equals_none(arch, remat):
     cfg = get_smoke_config(arch)
     batch = _batch(cfg, seed=4)
     out = []
-    for remat in ("none", "full"):
-        *_, tm = _pair(arch, remat=remat)
+    for policy in ("none", remat):
+        *_, tm = _pair(arch, remat=policy)
         out.append(_port_loss_grads(tm, batch, vocab_chunk=8))
     (loss_a, grads_a), (loss_b, grads_b) = out
     assert torch.equal(loss_a, loss_b)
     for name, g in grads_a.items():
         np.testing.assert_array_equal(g, grads_b[name], err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_1b6", "olmoe_1b_7b"])
+def test_remat_full_equals_none(arch):
+    _assert_remat_equals_none(arch, "full")
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_1b6", "olmoe_1b_7b"])
+def test_remat_dots_equals_none(arch):
+    _assert_remat_equals_none(arch, "dots")
+
+
+@pytest.mark.parametrize("arch,saved", [
+    ("llama3_8b", 7),     # wq, wk, wv, wo, w_gate, w_up, w_down
+    ("olmoe_1b_7b", 5),   # wq, wk, wv, wo, router; the expert products are bmm
+])
+def test_remat_dots_saves_the_products_without_batch_dims(arch, saved, monkeypatch):
+    """Under "dots" the layer forward saves exactly its ``x @ W`` products
+    (``aten.mm``): the attention and MoE expert products, which have batch
+    dims, are recomputed with the rest."""
+    decided, policy_fn = [], transformer_mod._save_dots
+
+    def recording(ctx, op, *args, **kwargs):
+        policy = policy_fn(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            decided.append((op, policy))
+        return policy
+    monkeypatch.setattr(transformer_mod, "_save_dots", recording)
+    cfg, *_, tm = _pair(arch, remat="dots")
+    loss, _ = _port_loss_grads(tm, _batch(cfg, seed=5), vocab_chunk=8)
+    kept = [op for op, policy in decided if policy == transformer_mod.CheckpointPolicy.MUST_SAVE]
+    assert set(kept) == {torch.ops.aten.mm.default}
+    assert len(kept) == saved * cfg.n_layers
+    assert torch.ops.aten.bmm.default in {op for op, _ in decided}
+    assert bool(torch.isfinite(loss))
 
 
 def test_loss_without_grad_builds_no_graph():
@@ -137,7 +176,7 @@ def test_loss_without_grad_builds_no_graph():
         assert torch.equal(tm.loss(batch), loss)
 
 
-@pytest.mark.parametrize("remat,error", [("dots", NotImplementedError), ("some", ValueError)])
+@pytest.mark.parametrize("remat,error", [("some", ValueError)])
 def test_unported_remat_policies_raise(remat, error):
     with pytest.raises(error, match="remat"):
         LM(get_smoke_config("llama3_8b"), param_dtype=torch.float32, remat=remat,
