@@ -23,12 +23,15 @@ a non-zero exit if it fails:
 2. kernel      ``flash_attention_bhsd`` vs its plain version on the card, f32
                and bf16, causal both ways, at the test shapes, a ragged S=1000
                and every shape the later phases give it (olmoe_1b_7b's MHA
-               16/16 and mixtral_8x7b's GQA 32/8 among them), each row naming
-               the kernel that served it (tensor-core or CUDA-core); at S >= 256
-               also a planted fault (one V tile zeroed) that the limit must
-               reject; times at the one-layer prefill shapes of llama3_8b
-               (32/8) and olmoe_1b_7b (16/16), with achieved TFLOP/s, share of
-               the bound and the ratio to SDPA
+               16/16, mixtral_8x7b's GQA 32/8, jamba_15_large's and
+               llama32_vision_90b's GQA 64/8 at hd 128, seamless_m4t_v2's MHA
+               16/16 at hd 64 among them), each row naming the kernel that
+               served it (tensor-core or CUDA-core); at S >= 256 also a
+               planted fault (one V tile zeroed) that the limit must reject;
+               times at the one-layer prefill shapes of llama3_8b (32/8),
+               olmoe_1b_7b (16/16), jamba_15_large (64/8) and seamless_m4t_v2
+               (16/16 at hd 64, non-causal as its encoder and causal), with
+               achieved TFLOP/s, share of the bound and the ratio to SDPA
 3. wkv         ``wkv_bhsd`` vs its plain version, out and state, f32 and bf16
                r/k/v with f32 w, two laws of w, nonzero s0, at the test
                shapes and a ragged S=1000 (contiguous [B,H,S,hd]) and at
@@ -77,7 +80,8 @@ a non-zero exit if it fails:
                shapes (llama3_8b's, and olmoe_1b_7b's MHA in bf16): the
                tensor-core and the CUDA-core backward on the same bf16
                inputs, the CUDA-core one in f32, autograd of the plain
-               version and SDPA's backward (the yardstick only), the
+               version and SDPA's backward (the yardstick only; also at
+               seamless_m4t_v2's 16/16 at hd 64, causal), the
                five-product bound and the bound of the products the
                tensor-core kernel runs (``WGMMA_BWD_PRODUCTS``)
 8b. wkv_backward  both WKV backward kernels vs autograd of the plain
@@ -153,9 +157,45 @@ a non-zero exit if it fails:
                prefill's k/v written into a decode cache, then 16 greedy
                decode steps past the window, which ``decode_attention``
                masks; finite logits
-16. kernels    the card's nvidia-smi line again, one JSON line listing every
-               ported kernel (the flash forward and tensor-core backward also
-               at olmoe_1b_7b's shape, with their launches on its paths), and
+16. jamba      jamba_15_large at full width, 4 of 72 layers at
+               attn_layer_period 4 (mamba, mamba+MoE, mamba, attn+MoE; 23.07 B
+               parameters), bf16: ``prefill`` on 2 x 4096 tokens, 1
+               tensor-core flash launch per call (its one attention layer) and
+               3 ``mamba_seq`` calls (the selective scan, plain torch); the
+               tokens its 2 MoE layers drop; a profiler window with the device
+               time under the scan's named range (``mamba_selective_scan``);
+               a teacher-forced ``greedy_decode`` through ``mamba_step``;
+               ``serve.main --production`` of the whole config must refuse its
+               799 GB before allocating; then f32 at 2 layers (period 2: mamba,
+               attn+MoE; 11.9 B parameters): prefill vs decode logits at
+               capacity factor 16, as phase 5
+17. vision     llama32_vision_90b at full width, 10 of 100 layers (2
+               cross-attention layers), bf16, over 6404 frontend tokens:
+               ``prefill`` on 2 x 4096 tokens, 10 flash launches per call and
+               none from cross-attention (the chunked scan); teacher-forced
+               ``greedy_decode`` with memory; int8 vs bf16 KV decode over 64
+               steps with memory (within 5 %); the whole config's refusal;
+               then f32 at 5 layers (1 cross layer): prefill vs decode with
+               memory, as phase 5
+18. seamless   seamless_m4t_v2 whole (24 encoder + 24 decoder layers, 1.93 B
+               parameters), bf16, over 2 x 4096 frames: ``encode_memory``
+               (24 non-causal launches), ``prefill`` (24 non-causal and 24
+               causal launches per call), teacher-forced ``greedy_decode``
+               (one encoding), then ``serve.main(["--arch",
+               "seamless_m4t_v2", "--production", ...])`` — its main path,
+               whose launches (by mask) are counted
+19. seamless_train  seamless_m4t_v2 whole, the step of phase 10 at B=1 x
+               S=4096 over 4096 frames: 24 non-causal and 24 causal
+               ``wgmma`` and as many ``backward_wgmma`` launches a step, twice
+               the forwards under ``remat="full"``, falling loss from fresh
+               weights; then f32 at 4 encoder and 4 decoder layers: ``LM.loss``
+               and every gradient leaf through the kernels vs the chunked
+               attention scan, as phase 9
+20. kernels    the card's nvidia-smi line again, one JSON line listing every
+               ported kernel (the flash forward also at olmoe_1b_7b's,
+               jamba_15_large's, llama32_vision_90b's and seamless_m4t_v2's
+               shapes and the tensor-core backward at olmoe_1b_7b's and
+               seamless_m4t_v2's, with their launches on those paths), and
                the final ``{"ok": true, "device": ...}``.
 
 Prefill calls and profile windows are timed after a full garbage
@@ -164,6 +204,7 @@ collection, and each reports the collector's seconds inside it; the
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
 import json
@@ -211,10 +252,18 @@ PEAK_BYTES = 3.35e12
 MAIN_SHAPE = (1, 4096, 32, 8, 128)
 # the olmoe_1b_7b layer at the same length: MHA, 16 heads of 128
 OLMOE_SHAPE = (1, 4096, 16, 16, 128)
+# the jamba_15_large and llama32_vision_90b layer: GQA 64/8 of 128 (group 8)
+GQA8_SHAPE = (1, 4096, 64, 8, 128)
+# the seamless_m4t_v2 layer: MHA, 16 heads of 64; non-causal in the
+# encoder, causal in the decoder
+SEAMLESS_SHAPE = (1, 4096, 16, 16, 64)
 # the shapes whose kernel times the kernels line reports, by the arch whose
-# layer they are (llama3_8b: both dtypes; olmoe_1b_7b: bf16, its dtype)
-TIMED_SHAPES = {MAIN_SHAPE: ("llama3_8b", ("f32", "bf16")),
-                OLMOE_SHAPE: ("olmoe_1b_7b", ("bf16",))}
+# layer they are, the dtypes and the masks (llama3_8b: both dtypes; the
+# others bf16, their dtype; seamless_m4t_v2's encoder is non-causal)
+TIMED_SHAPES = {MAIN_SHAPE: ("llama3_8b", ("f32", "bf16"), (True,)),
+                OLMOE_SHAPE: ("olmoe_1b_7b", ("bf16",), (True,)),
+                GQA8_SHAPE: ("jamba_15_large", ("bf16",), (True,)),
+                SEAMLESS_SHAPE: ("seamless_m4t_v2", ("bf16",), (False, True))}
 PREFILL = (2, 4096)                 # prompt batch x length of phase 3
 MAIN_PATH = (2, 256)                # batch x prompt length of serve.main below
 CONSISTENCY = (2, 80)               # batch x length of the 4-layer f32 prefill vs decode
@@ -232,6 +281,12 @@ KERNEL_SHAPES = [
     (*PREFILL, 16, 16, 128),    # olmoe_1b_7b's prefill (phase 12)
     (*MAIN_PATH, 16, 16, 128),  # olmoe_1b_7b's serve.main prefill
     (*CONSISTENCY, 16, 16, 128),  # olmoe_1b_7b's 4-layer f32 prefill (phase 14)
+    GQA8_SHAPE,
+    SEAMLESS_SHAPE,
+    (*PREFILL, 64, 8, 128),     # jamba_15_large's and llama32_vision_90b's prefill
+    (*PREFILL, 16, 16, 64),     # seamless_m4t_v2's encoder and decoder prefill
+    (*CONSISTENCY, 64, 8, 128),  # their f32 prefills (phases 16, 17)
+    (*MAIN_PATH, 16, 16, 64),   # seamless_m4t_v2's serve.main prefill
 ]
 # training: llama3_8b at full width with its depth cut to 8 of 32 layers
 # (2.80 B parameters: params, grads, m, v and master take 44.8 GB), one
@@ -254,7 +309,8 @@ TRAINER_SHAPE = (16, 4)             # seq x batch of phase 11 (the CPU tests' TI
 # the training shapes, and what phases 9, 11 and 14 give it
 BWD_SHAPES = KERNEL_SHAPES[:8] + [
     (GRAD_CHECK[0], GRAD_CHECK[1], 32, 8, 128), (TRAINER_SHAPE[1], TRAINER_SHAPE[0], 4, 2, 16),
-    (GRAD_CHECK[0], GRAD_CHECK[1], 16, 16, 128)]
+    (GRAD_CHECK[0], GRAD_CHECK[1], 16, 16, 128),
+    SEAMLESS_SHAPE, (GRAD_CHECK[0], GRAD_CHECK[1], 16, 16, 64)]    # phases 19, 19b
 # olmoe_1b_7b: full depth for serving; 6 of 16 layers for training (2.72 B
 # parameters: 43.6 GB of params, grads and AdamW state)
 OLMOE_TRAIN_LAYERS = 6
@@ -264,6 +320,24 @@ OLMOE_SERVE = dict(n_requests=8, prompt=(16, 65), new_tokens=16)    # ServeLoop 
 MIXTRAL_LAYERS = 4
 MIXTRAL_PREFILL = (1, 4096)
 MIXTRAL_DECODE = 16
+# jamba_15_large (399.6 B parameters whole): full width, 4 of 72 layers at
+# attn_layer_period 4 (mamba, mamba+MoE, mamba, attn+MoE; at its own period
+# of 8, 4 layers hold no attention layer), 23.07 B parameters, 46.1 GB in
+# bf16; the f32 check at 2 layers and period 2 (mamba, attn+MoE), 11.9 B
+# parameters, 47.7 GB
+JAMBA_CUT = dict(n_layers=4, attn_layer_period=4)
+JAMBA_F32_CUT = dict(n_layers=2, attn_layer_period=2)
+# llama32_vision_90b (90.7 B whole): full width, 10 of 100 layers (2 cross
+# layers), 10.96 B parameters, 21.9 GB in bf16; the f32 check at 5 (1 cross)
+VISION_CUT = dict(n_layers=10)
+VISION_F32_CUT = dict(n_layers=5)
+NEW_DECODE = (2, 16, 4)     # batch, teacher-forced prompt, new tokens of greedy_decode
+# seamless_m4t_v2 (1.93 B) is served and trained whole; the f32 gradient
+# check at 4 encoder and 4 decoder layers over GRAD_CHECK's length of frames
+SEAMLESS_F32_CUT = dict(n_layers=4, n_encoder_layers=4)
+# its cross-attention is the chunked scan on the card: the LM's default KV
+# chunk of 512, not the Trainer's 64 (64 chunks a layer of small launches)
+SEAMLESS_TRAIN_ATTN_CHUNK = 512
 # (atol, rtol) of kernel vs plain.  f32: tests/test_kernels.py's 2e-5 for
 # summation order.  bf16: both sides compute in f32 from the same bf16
 # inputs and round once to bf16, so they differ by at most one bf16 ulp,
@@ -534,7 +608,7 @@ def limit_ratio(out, ref, atol, rtol) -> float:
     return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
 
 
-def cuda_core_bf16_ms(q, k, v, reps: int) -> float:
+def cuda_core_bf16_ms(q, k, v, causal: bool, reps: int) -> float:
     """The CUDA-core kernel's time on bf16 inputs that the wrapper sends to
     the tensor-core kernel: the earlier design, timed in the same run.
     Called through its C entry point, so no launch count moves."""
@@ -543,14 +617,14 @@ def cuda_core_bf16_ms(q, k, v, reps: int) -> float:
     stream = torch.cuda.current_stream().cuda_stream
     bh, s, hd = q.shape
     launch = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),  # noqa: E731
-                        None, bh, k.shape[0], s, hd, 1, 1, hd ** -0.5, stream)
+                        None, bh, k.shape[0], s, hd, 1, int(causal), hd ** -0.5, stream)
     check(launch() == 0, "the CUDA-core kernel refused a bf16 launch")
     return time_ms(launch, reps)
 
 
 def phase_kernel() -> tuple[dict, list]:
     """Kernel vs plain at every shape and dtype; times at ``TIMED_SHAPES``,
-    keyed (arch, dtype)."""
+    keyed (arch, dtype, causal)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     timed, rows = {}, []
@@ -581,29 +655,30 @@ def phase_kernel() -> tuple[dict, list]:
                     row["fault_rejected"] = not bool(torch.allclose(
                         bad, ref.float(), atol=atol, rtol=rtol))
                     del bad
-                arch, timed_dtypes = TIMED_SHAPES.get((b, s, h, hkv, hd), (None, ()))
-                if name in timed_dtypes and causal:
+                arch, timed_dtypes, timed_masks = TIMED_SHAPES.get((b, s, h, hkv, hd),
+                                                                   (None, (), ()))
+                if name in timed_dtypes and causal in timed_masks:
                     reps = 10
                     row["kernel_ms"] = time_ms(
-                        lambda: fa.flash_attention_bhsd(q, k, v, causal=True), reps)
+                        lambda: fa.flash_attention_bhsd(q, k, v, causal=causal), reps)
                     row["plain_ms"] = time_ms(
-                        lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=True), reps)
+                        lambda: fa.flash_attention_bhsd_plain(q, k, v, causal=causal), reps)
                     # yardstick only: the port never calls SDPA
                     q4, k4, v4 = (t.view(b, -1, s, hd) for t in (q, k, v))
                     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                        q4, k4, v4, is_causal=True, enable_gqa=True)
+                        q4, k4, v4, is_causal=causal, enable_gqa=True)
                     row["library_ms"] = time_ms(sdpa, reps)
                     row["library_max_abs_err"] = float(
                         (sdpa().reshape(out.shape).float() - ref.float()).abs().max())
                     row["bound_ms"], row["bound_by"] = attention_bound_ms(
-                        b * h, b * hkv, s, hd, True, name, q.element_size())
-                    row["achieved_tflops"] = (attention_flops(b * h, s, hd, True)
+                        b * h, b * hkv, s, hd, causal, name, q.element_size())
+                    row["achieved_tflops"] = (attention_flops(b * h, s, hd, causal)
                                               / row["kernel_ms"] / 1e9)
                     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
                     row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
                     if name == "bf16":
-                        row["cuda_core_kernel_ms"] = cuda_core_bf16_ms(q, k, v, reps)
-                    timed[(arch, name)] = row
+                        row["cuda_core_kernel_ms"] = cuda_core_bf16_ms(q, k, v, causal, reps)
+                    timed[(arch, name, causal)] = row
                 emit("kernel", **row)
                 rows.append(row)
                 check(ok, f"flash_attention_bhsd disagrees with its plain version: {row}")
@@ -1095,16 +1170,19 @@ def wkv_bwd_row(timed_row: dict, checks: list, variant: str, launches: int, path
     return row
 
 
-def phase_kv_int8(model) -> dict:
-    """Full llama3_8b decode, token by token over ``KV_INT8`` steps, with
-    the int8 cache and with the bf16 cache from the same tokens: the int8
-    logits within 5 % of the bf16 ones (``tests/test_archs_smoke.py``'s
-    bar), the cache int8.  ``kv_dtype`` is read by ``init_cache`` alone, so
-    both runs use the one model's weights."""
+def phase_kv_int8(model, frontend=None) -> dict:
+    """Decode token by token over ``KV_INT8`` steps (reading the memory of
+    ``frontend`` where the arch has one), with the int8 cache and with the
+    bf16 cache from the same tokens: the int8 logits within 5 % of the bf16
+    ones (``tests/test_archs_smoke.py``'s bar), the cache int8.
+    ``kv_dtype`` is read by ``init_cache`` alone, so both runs use the one
+    model's weights."""
     cfg = model.cfg
     b, n = KV_INT8
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     tokens = torch.randint(0, cfg.vocab_size, (b, n), generator=gen, device="cuda")
+    with torch.no_grad():
+        memory = model.encode_memory(frontend)
     runs = {}
     reset_launches()
     try:
@@ -1116,7 +1194,7 @@ def phase_kv_int8(model) -> dict:
                 for t in range(n):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+                    lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t, memory=memory)
                     torch.cuda.synchronize()
                     secs.append(time.perf_counter() - t0)
                     logits.append(lg[:, 0])
@@ -1141,7 +1219,7 @@ def phase_kv_int8(model) -> dict:
     check(row["logits_finite"] and worst / scale < 0.05,
           f"int8 KV decode is off the bf16 cache's logits by more than 5 %: {row}")
     check(cache[0]["k"].dtype == cache[0]["v"].dtype == torch.int8, "the cache is not int8")
-    del runs, cache
+    del runs, cache, memory
     return row
 
 
@@ -1194,68 +1272,91 @@ def phase_rwkv_gradients(cfg_full) -> int:
     return launches["backward"]
 
 
-def phase_prefill(model) -> dict:
+def phase_prefill(model, frontend=None, masks=None) -> dict:
+    """``prefill`` on ``PREFILL`` tokens (with ``frontend`` embeddings where
+    the arch has them), twice; each call must launch the tensor-core kernel
+    once per self-attention layer (decoder and encoder), by mask as
+    ``masks`` says (default: every launch causal).  The kernel alone at the
+    call's shape, for each mask, splits the time."""
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b, s = PREFILL
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    masks = masks or {"wgmma/causal": attention_layers(model)}
     torch.cuda.reset_peak_memory_stats()
-    launches, secs, gc_secs = [], [], []
+    launches, by_mask, secs, gc_secs = [], [], [], []
     for _ in range(2):          # the first call also warms cuBLAS up
         fa.reset_launch_counts()
-        logits, sec, gc_sec = timed_call(lambda: serve.prefill(model, tokens))
+        logits, sec, gc_sec = timed_call(lambda: serve.prefill(model, tokens, frontend))
         secs.append(sec)
         gc_secs.append(gc_sec)
         launches.append(dict(fa.flash_attention_bhsd.variant_launches))
+        by_mask.append(dict(fa.flash_attention_bhsd.mask_launches))
         check(tuple(logits.shape) == (b, cfg.vocab_size), f"logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
-        check(launches[-1] == flash_counts(wgmma=cfg.n_layers),
-              f"kernel launches in one prefill {launches[-1]}, want {cfg.n_layers} "
-              f"of the tensor-core kernel")
+        check(launches[-1] == flash_counts(wgmma=sum(masks.values())) and by_mask[-1] == masks,
+              f"kernel launches in one prefill {launches[-1]} {by_mask[-1]}, want {masks}")
     peak = torch.cuda.max_memory_allocated()
-    # the kernel alone at this call's attention shape, to split the time
     q = torch.randn((b * cfg.n_heads, s, cfg.hd), generator=gen, device="cuda").bfloat16()
     kv = torch.randn((b * cfg.n_kv_heads, s, cfg.hd), generator=gen, device="cuda").bfloat16()
-    attn_ms = time_ms(lambda: fa.flash_attention_bhsd(q, kv, kv, causal=True), 5)
-    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, dtype="bf16",
-               launches_per_call=launches, seconds=secs, gc_seconds_in_calls=gc_secs,
-               tokens_per_s=b * s / secs[-1], peak_memory_gb=peak / 1e9,
-               attention_kernel_ms_per_layer=attn_ms,
-               attention_share=attn_ms * cfg.n_layers / 1e3 / secs[-1])
+    attn_ms = {mask: time_ms(lambda: fa.flash_attention_bhsd(
+        q, kv, kv, causal=mask.endswith("causal")), 5) for mask in masks}
+    attention_s = sum(attn_ms[mask] * n for mask, n in masks.items()) / 1e3
+    row = dict(arch=cfg.name, layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+               batch=b, seq=s, frontend_tokens=0 if frontend is None else frontend.shape[1],
+               dtype="bf16", launches_per_call=launches, mask_launches_per_call=by_mask,
+               seconds=secs, gc_seconds_in_calls=gc_secs, tokens_per_s=b * s / secs[-1],
+               peak_memory_gb=peak / 1e9, attention_kernel_ms_per_layer=attn_ms,
+               attention_share=attention_s / secs[-1])
     emit("prefill", **row)
     return row
 
 
-def phase_consistency(cfg_full, capacity_factor: float = 1.25) -> int:
-    """Prefill logits vs decode logits, full width, 4 layers, f32; returns
-    the CUDA-core kernel's launches in the prefill, the one path that runs
-    it.  A MoE config runs at ``capacity_factor`` 16, where the prefill
-    drops no token (decode's groups of one token drop none either)."""
-    cfg = replace(cfg_full, n_layers=4)
+def attention_layers(model) -> int:
+    """Self-attention layers of ``model``'s decoder and encoder: the flash
+    launches of one forward."""
+    decoder = model.n_rep * sum(spec.kind == "attn" for spec in model.specs)
+    return decoder + model.cfg.n_encoder_layers
+
+
+def phase_consistency(cfg_full, capacity_factor: float = 1.25, **cut) -> int:
+    """Prefill logits vs decode logits, full width, f32, 4 layers unless
+    ``cut`` says otherwise; archs with a frontend get seeded embeddings
+    (decode reads ``encode_memory``'s memory).  Returns the CUDA-core
+    kernel's launches in the prefill, the one path that runs it.  A MoE
+    config runs at ``capacity_factor`` 16, where the prefill drops no token
+    (decode's groups of one token drop none either)."""
+    cfg = replace(cfg_full, **{"n_layers": 4, **cut})
     b, s = CONSISTENCY              # S not a multiple of the kernel's 64-row tile
     model = LM(cfg, param_dtype=torch.float32, capacity_factor=capacity_factor,
                seed=SEED, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    frontend = (torch.randn((b, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+                            device="cuda") if cfg.frontend_tokens else None)
     fa.reset_launch_counts()
-    last = serve.prefill(model, tokens)
+    last = serve.prefill(model, tokens, frontend)
     launches = dict(fa.flash_attention_bhsd.variant_launches)
-    check(launches == flash_counts(cuda_core=cfg.n_layers),
-          f"f32 prefill kernel launches {launches}, want {cfg.n_layers} of the CUDA-core kernel")
+    n_attn = attention_layers(model)
+    check(launches == flash_counts(cuda_core=n_attn),
+          f"f32 prefill kernel launches {launches}, want {n_attn} of the CUDA-core kernel")
     with torch.no_grad():
-        full = model(tokens)
+        full = model(tokens, frontend)
+        memory = model.encode_memory(frontend)
         cache = model.init_cache(b, s, dtype=torch.float32)
         worst = 0.0
         for t in range(s):
-            logits, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+            logits, cache = model.decode_step(cache, tokens[:, t:t + 1], t, memory=memory)
             worst = max(worst, float((logits[:, 0] - full[:, t]).abs().max()))
     err_last = float((logits[:, 0] - last).abs().max())
     emit("consistency", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, batch=b,
-         seq=s, dtype="f32", capacity_factor=capacity_factor, max_abs_err_last=err_last,
+         seq=s, kinds=[spec.kind for spec in model.specs], dtype="f32",
+         frontend_tokens=cfg.frontend_tokens if frontend is not None else 0,
+         capacity_factor=capacity_factor, max_abs_err_last=err_last,
          max_abs_err_all_positions=worst, tol=2e-3, kernel_launches=launches)
     check(err_last < 2e-3 and worst < 2e-3,
           f"prefill vs decode logits differ: last {err_last}, all {worst}")
-    del model, cache, full
+    del model, cache, full, memory
     return launches["cuda_core"]
 
 
@@ -1308,8 +1409,13 @@ def profile_window(fn, reps: int, top: int = 6, named: str = "", ops=()) -> dict
     per_name, per_op = {}, dict.fromkeys(ops, 0.0)
     for e in prof.key_averages():
         if e.key in per_op:
-            us = getattr(e, "device_time_total", None)
-            per_op[e.key] += (e.cuda_time_total if us is None else us) / 1e3 / reps
+            # the host entry of an operator or a named range: the device
+            # time of the kernels launched under it; a named range's
+            # device-side span (a user annotation) is no kernel
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                us = getattr(e, "device_time_total", None)
+                per_op[e.key] += (e.cuda_time_total if us is None else us) / 1e3 / reps
+            continue
         # device-side entries only: a CPU op's own entry repeats the
         # time of the kernels it launched
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1461,9 +1567,10 @@ def flash_counts(**launches) -> dict:
     return {**dict.fromkeys(fa.VARIANTS, 0), **launches}
 
 
-def phase_main_path(arch: str = "llama3_8b") -> int:
+def phase_main_path(arch: str = "llama3_8b", masks=None) -> int:
     """``serve.main --production``: prefill then greedy decode on the card;
-    one tensor-core flash launch per layer (the prefill's)."""
+    one tensor-core flash launch per layer (the prefill's), or by mask as
+    ``masks`` says."""
     argv = ["--arch", arch, "--production", "--batch", str(MAIN_PATH[0]),
             "--prompt-len", str(MAIN_PATH[1]), "--tokens", "16"]
     reset_launches()
@@ -1471,12 +1578,14 @@ def phase_main_path(arch: str = "llama3_8b") -> int:
     rc = serve.main(argv)
     torch.cuda.synchronize()
     launches = dict(fa.flash_attention_bhsd.variant_launches)
+    by_mask = dict(fa.flash_attention_bhsd.mask_launches)
     emit("serve_main", argv=argv, rc=rc, seconds=time.perf_counter() - t0,
-         kernel_launches=launches, wkv_launches=wkv.wkv_bhsd.launches)
+         kernel_launches=launches, mask_launches=by_mask, wkv_launches=wkv.wkv_bhsd.launches)
     check(rc == 0, f"serve.main exited {rc}")
-    want = get_config(arch).n_layers    # one launch per layer, one prefill
-    check(launches == flash_counts(wgmma=want),
-          f"kernel launches on the main path {launches}, want {want} of the tensor-core kernel")
+    # one launch per layer, one prefill
+    masks = masks or {"wgmma/causal": get_config(arch).n_layers}
+    check(launches == flash_counts(wgmma=sum(masks.values())) and by_mask == masks,
+          f"kernel launches on the main path {launches} {by_mask}, want {masks}")
     check(wkv.wkv_bhsd.launches == 0, f"the {arch} path launched the WKV kernel")
     return launches["wgmma"]
 
@@ -1656,7 +1765,7 @@ def phase_backward() -> tuple[dict, list]:
                                                    for x, r in zip(bad, ref))
                     row["fault_rejected"] = row["fault_limit_ratio"] > 1
                     del bad
-                arch, timed_dtypes = TIMED_SHAPES.get((b, s, h, hkv, hd), (None, ()))
+                arch, timed_dtypes, _ = TIMED_SHAPES.get((b, s, h, hkv, hd), (None, (), ()))
                 if name in timed_dtypes and causal:
                     row.update(backward_times(q, k, v, do, name))
                     timed[(arch, name)] = row
@@ -1751,12 +1860,14 @@ def model_grads(model, batch) -> tuple[float, dict]:
     return float(loss.detach()), grads
 
 
-def phase_gradients(cfg_full) -> int:
+def phase_gradients(cfg_full, **cut) -> int:
     """``LM.loss`` and every gradient leaf through the kernels (CUDA-core
-    forward, backward kernel) vs the same with attention routed to the
-    chunked torch scan: full width, 4 layers, f32, TF32 off.  Returns the
-    backward kernel's launches in the kernel route."""
-    cfg = replace(cfg_full, n_layers=4)
+    forward, backward kernel) vs the same with self-attention routed to the
+    chunked torch scan: full width, 4 layers unless ``cut`` says otherwise,
+    f32, TF32 off; archs with a frontend get seeded embeddings of
+    ``GRAD_CHECK``'s length.  Returns the backward kernel's launches in the
+    kernel route."""
+    cfg = replace(cfg_full, **{"n_layers": 4, **cut})
     model = LM(cfg, param_dtype=torch.float32, seed=SEED, device="cuda")
     for p in model.parameters():
         p.requires_grad_(True)
@@ -1764,6 +1875,8 @@ def phase_gradients(cfg_full) -> int:
     b, s = GRAD_CHECK
     toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.frontend_tokens:
+        batch["frontend"] = torch.randn((b, s, cfg.frontend_dim), generator=gen, device="cuda")
     fa.reset_launch_counts()
     loss_k, grads_k = model_grads(model, batch)
     launches = dict(fa.flash_attention_bhsd.variant_launches)
@@ -1778,13 +1891,15 @@ def phase_gradients(cfg_full) -> int:
     errs = {name: float((g - grads_s[name]).abs().max() / grads_s[name].abs().max().clamp(
         min=1e-30)) for name, g in grads_k.items()}
     worst = max(errs, key=errs.get)
-    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, batch=b, seq=s,
+    row = dict(arch=cfg.name, layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+               d_model=cfg.d_model, batch=b, seq=s,
                dtype="f32", loss_kernels=loss_k, loss_scan=loss_s, loss_abs_err=abs(loss_k - loss_s),
                leaves=len(errs), worst_leaf=worst, worst_rel_err=errs[worst],
                median_rel_err=statistics.median(errs.values()), limit=GRAD_TOL,
                kernel_launches=launches, scan_route_flash_launches=scan_launches)
     emit("gradients", **row)
-    check(launches == flash_counts(cuda_core=cfg.n_layers, backward=cfg.n_layers),
+    n_attn = attention_layers(model)
+    check(launches == flash_counts(cuda_core=n_attn, backward=n_attn),
           f"kernel-route launches {launches}")
     check(scan_launches == 0, "the scan route launched a flash kernel")
     check(all(e <= GRAD_TOL for e in errs.values()) and abs(loss_k - loss_s) < 1e-4,
@@ -1816,7 +1931,8 @@ def train_step_timed(trainer, params, opt_state, batch):
     return params, opt_state, loss, secs, split, peak["fwd_bwd"]
 
 
-def train_cell(cfg, read_launches, profile_named: str, remats=("full",)) -> dict:
+def train_cell(cfg, read_launches, profile_named: str, remats=("full",),
+               attn_chunk: int = 64) -> dict:
     """Full-width ``cfg`` with bf16 params and f32 AdamW state:
     ``Trainer.step_fn`` on one repeated B x S = ``TRAIN_SHAPE`` batch,
     timed at the trainer's default AdamW; two steps under each policy of
@@ -1824,12 +1940,13 @@ def train_cell(cfg, read_launches, profile_named: str, remats=("full",)) -> dict
     must fall.  The training main path: the launch counts are reset just
     before the timed steps and read (``read_launches()``) just after.
     Peaks: the step's, and the forward and backward pass's (read as AdamW
-    starts), where the activations that ``remat`` keeps show."""
+    starts), where the activations that ``remat`` keeps show.  ``attn_chunk``
+    is the Trainer's (the KV chunk of the chunked attention scan)."""
     seq, batch_size = TRAIN_SHAPE[1], TRAIN_SHAPE[0]
     with tempfile.TemporaryDirectory() as ckpt_dir:
         trainer = Trainer(cfg, ShapeConfig("train_4k_b1", seq, batch_size, "train"),
                           TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=ckpt_dir),
-                          param_dtype=torch.bfloat16, device="cuda")
+                          param_dtype=torch.bfloat16, attn_chunk=attn_chunk, device="cuda")
         params = trainer.params()
         opt_state = adamw_init(params)
         n_params = sum(p.numel() for p in tree_leaves(params))
@@ -2145,6 +2262,218 @@ def phase_mixtral(cfg_full) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def counting_calls(module, name: str, seen: dict):
+    """Count the calls of ``module.name`` into ``seen[name]`` while inside."""
+    original = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        seen[name] = seen.get(name, 0) + 1
+        return original(*args, **kwargs)
+    setattr(module, name, counted)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, original)
+
+
+def greedy_row(model, tokens, frontend=None, **counted) -> dict:
+    """``greedy_decode`` of ``NEW_DECODE``'s teacher-forced prompt and new
+    tokens (with the memory of ``frontend`` where given): tokens in range,
+    the seconds, the flash launches (by mask) and the calls of each
+    ``counted`` (name: module) function."""
+    cfg = model.cfg
+    b, plen, new = NEW_DECODE
+    seen: dict = {}
+    reset_launches()
+    with contextlib.ExitStack() as stack:
+        for name, module in counted.items():
+            stack.enter_context(counting_calls(module, name, seen))
+        out, secs, gc_secs = timed_call(lambda: serve.greedy_decode(
+            model, tokens[:b, :plen], new, None if frontend is None else frontend[:b]))
+    check(tuple(out.shape) == (b, new) and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"greedy_decode gave {tuple(out.shape)} tokens out of range")
+    return dict(batch=b, prompt=plen, new_tokens=new, seconds=secs, gc_seconds=gc_secs,
+                steps=plen + new, ms_per_step=secs * 1e3 / (plen + new),
+                flash_launches=dict(fa.flash_attention_bhsd.mask_launches), calls=seen,
+                sample=out[0].tolist())
+
+
+def production_refusal(arch: str) -> dict:
+    """``serve.main --production`` of a config whose bf16 weights exceed
+    the card must raise ``ValueError`` before it allocates anything."""
+    before = torch.cuda.memory_allocated()
+    try:
+        serve.main(["--arch", arch, "--production"])
+    except ValueError as err:
+        refused = str(err)
+    else:
+        refused = None
+    check(refused is not None and "bytes" in refused,
+          f"serve.main --arch {arch} --production did not refuse: {refused}")
+    check(torch.cuda.memory_allocated() == before, "the refused serve.main allocated memory")
+    return dict(arch=arch, refused=refused)
+
+
+def scan_event_ms(model, tokens) -> tuple[float, float]:
+    """(device ms of the selective scan's chunks, CUDA events around each
+    chunk; the prefill's wall seconds) over one prefill of ``tokens``: the
+    scan's share without the profiler."""
+    spans, original = [], transformer_mod.ssm_mod._selective_scan_chunk
+
+    def timed_chunk(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+    transformer_mod.ssm_mod._selective_scan_chunk = timed_chunk
+    try:
+        _, secs, _ = timed_call(lambda: serve.prefill(model, tokens))
+    finally:
+        transformer_mod.ssm_mod._selective_scan_chunk = original
+    return sum(a.elapsed_time(b) for a, b in spans), secs
+
+
+def phase_jamba(cfg_full) -> dict:
+    """jamba_15_large at full width, ``JAMBA_CUT``, bf16: prefill (one
+    tensor-core flash launch a call: its one attention layer; the three
+    Mamba layers' selective scan in plain torch), the tokens its two MoE
+    layers drop, a profile with the device time under the scan's named
+    range, a teacher-forced ``greedy_decode`` through ``mamba_step``, and
+    the whole config's refusal."""
+    cfg = replace(cfg_full, **JAMBA_CUT)
+    model = LM(cfg, seed=SEED, device="cuda")        # bf16
+    layout = [(spec.kind, spec.moe) for spec in model.specs]
+    check(layout == [("mamba", False), ("mamba", True), ("mamba", False), ("attn", True)],
+          f"jamba's layer pattern {layout}")
+    seen: dict = {}
+    with counting_calls(transformer_mod.ssm_mod, "mamba_seq", seen):
+        row = phase_prefill(model)
+    check(seen == {"mamba_seq": 3 * 2}, f"mamba_seq calls in two prefills {seen}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
+    drops = moe_drops(model, tokens)
+    check(len(drops) == 2 and all(
+        d["routed"] == PREFILL[0] * PREFILL[1] * cfg.experts_per_token for d in drops),
+        f"MoE routing counts {drops}")
+    prof = profile_window(lambda: serve.prefill(model, tokens), 1, top=10,
+                          ops=("mamba_selective_scan", *MOE_OPS))
+    scan_ms, prefill_s = scan_event_ms(model, tokens)
+    decode = greedy_row(model, tokens, mamba_step=transformer_mod.ssm_mod)
+    b, plen, new = NEW_DECODE
+    check(decode["calls"] == {"mamba_step": 3 * (plen + new)} and not decode["flash_launches"],
+          f"jamba decode: {decode['calls']}, flash {decode['flash_launches']}")
+    row = dict(prefill=row, params=sum(p.numel() for p in model.parameters()),
+               layout=layout, capacity_factor=model.capacity_factor,
+               dropped_per_layer=[d["dropped"] for d in drops],
+               dropped_share_per_layer=[d["dropped"] / d["routed"] for d in drops],
+               profile=prof, scan_share=prof["op_device_share"]["mamba_selective_scan"],
+               scan_event_ms=scan_ms, scan_event_share_of_wall=scan_ms / (prefill_s * 1e3),
+               decode=decode)
+    del model
+    free()
+    row["whole_config"] = production_refusal("jamba_15_large")
+    emit("jamba", **row)
+    return row
+
+
+def phase_vision(cfg_full) -> dict:
+    """llama32_vision_90b at full width, ``VISION_CUT``, bf16, over 6404
+    frontend tokens: prefill (one tensor-core launch a layer, none from its
+    two cross-attention layers, which run the chunked scan), a teacher-forced
+    ``greedy_decode`` with memory, int8 vs bf16 KV decode with memory, and
+    the whole config's refusal."""
+    cfg = replace(cfg_full, **VISION_CUT)
+    model = LM(cfg, seed=SEED, device="cuda")        # bf16
+    n_cross = model.n_rep * sum(spec.cross for spec in model.specs)
+    check(n_cross == 2, f"{n_cross} cross layers in {cfg.n_layers}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    frontend = torch.randn((PREFILL[0], cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+                           device="cuda")
+    seen: dict = {}
+    with counting_calls(transformer_mod.attn, "cross_attention", seen):
+        row = phase_prefill(model, frontend)
+    check(seen == {"cross_attention": n_cross * 2}, f"cross-attention calls {seen}")
+    tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
+    decode = greedy_row(model, tokens, frontend, cross_attention=transformer_mod.attn)
+    b, plen, new = NEW_DECODE
+    check(decode["calls"] == {"cross_attention": n_cross * (plen + new)}
+          and not decode["flash_launches"],
+          f"vision decode: {decode['calls']}, flash {decode['flash_launches']}")
+    kv = phase_kv_int8(model, frontend[:KV_INT8[0]])
+    row = dict(prefill=row, params=sum(p.numel() for p in model.parameters()),
+               cross_layers=n_cross, decode=decode, kv_int8_rel_gap=kv["rel_gap"])
+    del model, frontend
+    free()
+    row["whole_config"] = production_refusal("llama32_vision_90b")
+    emit("vision", **row)
+    return row
+
+
+def phase_seamless(cfg) -> dict:
+    """seamless_m4t_v2 whole, bf16, over 2 x 4096 frames: ``encode_memory``
+    (24 non-causal launches), prefill (24 non-causal encoder and 24 causal
+    decoder launches; the decoder's 24 cross-attentions run the chunked
+    scan) and a teacher-forced ``greedy_decode`` (one encoding)."""
+    model = LM(cfg, seed=SEED, device="cuda")        # bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    frontend = torch.randn((PREFILL[0], cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+                           device="cuda")
+    n = cfg.n_layers
+    reset_launches()
+    mem, enc_s, _ = timed_call(lambda: model.encode_memory(frontend))
+    enc_masks = dict(fa.flash_attention_bhsd.mask_launches)
+    check(tuple(mem.shape) == (PREFILL[0], cfg.frontend_tokens, cfg.d_model)
+          and bool(torch.isfinite(mem).all()), "encode_memory's memory")
+    check(enc_masks == {"wgmma/full": cfg.n_encoder_layers},
+          f"encode_memory launches {enc_masks}")
+    seen: dict = {}
+    with counting_calls(transformer_mod.attn, "cross_attention", seen):
+        row = phase_prefill(model, frontend, masks={"wgmma/full": cfg.n_encoder_layers,
+                                                    "wgmma/causal": n})
+    check(seen == {"cross_attention": n * 2}, f"cross-attention calls {seen}")
+    tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
+    decode = greedy_row(model, tokens, frontend)
+    check(decode["flash_launches"] == {"wgmma/full": cfg.n_encoder_layers},
+          f"seamless decode launches {decode['flash_launches']}")
+    row = dict(prefill=row, params=sum(p.numel() for p in model.parameters()),
+               encode_seconds=enc_s, encode_frames_per_s=PREFILL[0] * PREFILL[1] / enc_s,
+               encode_launches=enc_masks, decode=decode)
+    emit("seamless", **row)
+    del model, frontend, mem
+    return row
+
+
+def phase_seamless_train(cfg) -> dict:
+    """seamless_m4t_v2 whole (:func:`train_cell`), B=1 x S=4096 over 4096
+    frames: 24 non-causal and 24 causal tensor-core forwards and as many
+    backwards a step, twice the forwards under "full"."""
+    read = lambda: {**fa.flash_attention_bhsd.variant_launches,  # noqa: E731
+                    **fa.flash_attention_bhsd.mask_launches}
+    row = train_cell(cfg, read, "flash", attn_chunk=SEAMLESS_TRAIN_ATTN_CHUNK)
+    emit("seamless_train", **row)
+    check_training(row)
+    e, d = cfg.n_encoder_layers, cfg.n_layers
+
+    def want(fwd):
+        return {**flash_counts(wgmma=fwd * (e + d), backward_wgmma=e + d),
+                "wgmma/full": fwd * e, "wgmma/causal": fwd * d,
+                "backward_wgmma/full": e, "backward_wgmma/causal": d}
+    steps = {k: v * TRAIN_STEPS for k, v in want(1).items()}
+    check(row["launches"] == steps,
+          f"seamless training launches {row['launches']}, want {steps}")
+    check(row["remat"]["full"]["launches"] == want(2),
+          f"remat='full' seamless step launches {row['remat']['full']['launches']}")
+    return row
+
+
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def backward_row(main_row: dict, checks: list, variant: str, launches: int, path: str,
                  at: str = "") -> dict:
     """The kernels-line entry of one backward kernel: errors over the
@@ -2253,16 +2582,58 @@ def main() -> int:
     phase_gradients(olmoe_cfg)
     torch.cuda.empty_cache()
     phase_mixtral(get_config("mixtral_8x7b"))
+    free()
 
-    olmoe = "olmoe_1b_7b"
-    kernels = [flash_row(timed[("llama3_8b", "bf16")], checks, "wgmma", launches,
+    jamba_cfg = get_config("jamba_15_large")
+    jamba = phase_jamba(jamba_cfg)
+    free()
+    phase_consistency(jamba_cfg, capacity_factor=16.0, **JAMBA_F32_CUT)
+    free()
+    vision_cfg = get_config("llama32_vision_90b")
+    vision = phase_vision(vision_cfg)
+    free()
+    phase_consistency(vision_cfg, **VISION_F32_CUT)
+    free()
+    seamless_cfg = get_config("seamless_m4t_v2")
+    phase_seamless(seamless_cfg)
+    free()
+    seamless_masks = {"wgmma/full": 2 * seamless_cfg.n_encoder_layers,
+                      "wgmma/causal": seamless_cfg.n_layers}
+    seamless_launches = phase_main_path("seamless_m4t_v2", masks=seamless_masks)
+    free()
+    seamless_train = phase_seamless_train(seamless_cfg)
+    free()
+    phase_gradients(seamless_cfg, **SEAMLESS_F32_CUT)
+
+    olmoe, jamba_id, vision_id, seamless = ("olmoe_1b_7b", "jamba_15_large",
+                                            "llama32_vision_90b", "seamless_m4t_v2")
+    heads = lambda *shape: [r for r in checks if r["shape"][2:] == list(shape)]  # noqa: E731
+    seamless_row = flash_row(timed[(seamless, "bf16", False)], heads(16, 16, 64), "wgmma",
+                             seamless_launches,
+                             "serve.main --arch seamless_m4t_v2 --production (two encodings: "
+                             "the prefill's and greedy_decode's; one decoder prefill)",
+                             at=seamless)
+    causal_row = timed[(seamless, "bf16", True)]
+    seamless_row["mask"] = "full (the encoder's); causal_* keys: the decoder's"
+    seamless_row.update({f"causal_{key}": causal_row[key] for key in (
+        "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share")})
+    kernels = [flash_row(timed[("llama3_8b", "bf16", True)], checks, "wgmma", launches,
                          "every llama3_8b prefill (serve.main --production)"),
-               flash_row(timed[("llama3_8b", "f32")], checks, "cuda_core", cuda_core_launches,
-                         "the 4-layer f32 prefill of phase 5"),
-               flash_row(timed[(olmoe, "bf16")], [r for r in checks if r["shape"][2:4] == [16, 16]],
-                         "wgmma", olmoe_launches,
+               flash_row(timed[("llama3_8b", "f32", True)], checks, "cuda_core",
+                         cuda_core_launches, "the 4-layer f32 prefill of phase 5"),
+               flash_row(timed[(olmoe, "bf16", True)], heads(16, 16, 128), "wgmma",
+                         olmoe_launches,
                          "every olmoe_1b_7b prefill (serve.main --arch olmoe_1b_7b --production)",
-                         at=olmoe)]
+                         at=olmoe),
+               flash_row(timed[(jamba_id, "bf16", True)], heads(64, 8, 128), "wgmma",
+                         jamba["prefill"]["launches_per_call"][-1]["wgmma"],
+                         f"every jamba_15_large prefill ({JAMBA_CUT['n_layers']} layers, one "
+                         f"of them attention)", at=jamba_id),
+               flash_row(timed[(jamba_id, "bf16", True)], heads(64, 8, 128), "wgmma",
+                         vision["prefill"]["launches_per_call"][-1]["wgmma"],
+                         f"every llama32_vision_90b prefill ({VISION_CUT['n_layers']} layers; "
+                         f"its cross-attention launches none)", at=vision_id),
+               seamless_row]
     main_decode = (RWKV_MAIN_PATH[0], 1, *WKV_MAIN[2:])
     kernels += [wkv_row(wkv_timed["bf16"], wkv_checks, "chunked", wkv_launches["chunked"],
                         "every rwkv6_1b6 bf16 prefill (serve.main --production)"),
@@ -2278,10 +2649,15 @@ def main() -> int:
                 backward_row(bwd_timed[("llama3_8b", "f32")], bwd_checks, "backward",
                              grad_launches, "the 4-layer f32 loss gradient of phase 9"),
                 backward_row(bwd_timed[(olmoe, "bf16")],
-                             [r for r in bwd_checks if r["shape"][2:4] == [16, 16]],
+                             [r for r in bwd_checks if r["shape"][2:] == [16, 16, 128]],
                              "backward_wgmma", olmoe_train["launches"]["backward_wgmma"],
                              f"every full-width olmoe_1b_7b train step ({OLMOE_TRAIN_LAYERS} "
                              f"layers, {TRAIN_STEPS} steps of Trainer.step_fn)", at=olmoe),
+                backward_row(bwd_timed[(seamless, "bf16")],
+                             [r for r in bwd_checks if r["shape"][2:] == [16, 16, 64]],
+                             "backward_wgmma", seamless_train["launches"]["backward_wgmma"],
+                             f"every seamless_m4t_v2 train step (whole, {TRAIN_STEPS} steps of "
+                             f"Trainer.step_fn; half of them non-causal)", at=seamless),
                 wkv_bwd_row(wkv_bwd_timed["bf16"], wkv_bwd_checks, "backward_chunked",
                             rwkv_train["launches"]["backward_chunked"],
                             f"every full-width rwkv6_1b6 train step ({rwkv_cfg.n_layers} "

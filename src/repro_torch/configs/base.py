@@ -2,9 +2,10 @@
 
 The port's own copy of ``ModelConfig``, ``get_config`` and
 ``get_smoke_config`` from the JAX package's ``configs/base.py``: the
-port imports nothing of that package.  Only the architectures that the
-port runs are listed (the dense and MoE decoders and RWKV6); the others
-arrive with their slices.
+port imports nothing of that package.  ``ARCH_IDS`` lists the JAX
+package's ten architectures in its order: the dense and MoE decoders,
+RWKV6, the hybrid Mamba/attention model, the cross-attention VLM and the
+encoder-decoder.
 ``ShapeConfig`` (a batch shape: sequence length, global batch, kind) is
 copied too, for the trainer.
 Each module defines ``CONFIG`` (published dims) and ``smoke_config()``
@@ -184,6 +185,9 @@ ARCH_IDS = (
     "qwen25_32b",
     "llama3_8b",
     "rwkv6_1b6",
+    "jamba_15_large",
+    "llama32_vision_90b",
+    "seamless_m4t_v2",
 )
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -195,14 +199,16 @@ _ALIASES.update({
     "qwen2.5-32b": "qwen25_32b",
     "llama3-8b": "llama3_8b",
     "rwkv6-1.6b": "rwkv6_1b6",
+    "jamba-1.5-large-398b": "jamba_15_large",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
+    "seamless-m4t-large-v2": "seamless_m4t_v2",
 })
 
 
 def _module(arch: str):
     key = _ALIASES.get(arch, arch)
     if key not in ARCH_IDS:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
-                       f"ported: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

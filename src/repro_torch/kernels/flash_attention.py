@@ -108,7 +108,7 @@ def _check_cuda(q, k, v) -> str:
     return variant
 
 
-def _launch(variant: str, device, *args) -> None:
+def _launch(variant: str, device, causal: bool, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _kernel(variant)(*args, stream)
@@ -117,6 +117,9 @@ def _launch(variant: str, device, *args) -> None:
                            f"cudaError_t {err}")
     flash_attention_bhsd.variant_launches[variant] += 1
     flash_attention_bhsd.launches += 1
+    mask = f"{variant}/{'causal' if causal else 'full'}"
+    counts = flash_attention_bhsd.mask_launches
+    counts[mask] = counts.get(mask, 0) + 1
 
 
 def _forward(q, k, v, causal: bool, with_lse: bool):
@@ -126,7 +129,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     o = torch.empty_like(q)
     lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _launch(variant, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    _launch(variant, q.device, causal, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), bh, k.shape[0], s, hd,
             int(q.dtype == torch.bfloat16), int(causal), hd ** -0.5)
     return o, lse
@@ -160,9 +163,10 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal: bool = True):
     else:
         scratch = torch.empty_like(lse)    # D
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch(variant, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, k.shape[0], s, hd, int(q.dtype == torch.bfloat16), int(causal), hd ** -0.5)
+    _launch(variant, q.device, causal, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bh, k.shape[0], s, hd, int(q.dtype == torch.bfloat16), int(causal),
+            hd ** -0.5)
     return dq, dk, dv
 
 
@@ -203,10 +207,14 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts: the sum and each kernel's own."""
+    """Zero the launch counts: the sum, each kernel's own, and each
+    kernel's by mask (``"wgmma/causal"``, ``"wgmma/full"``, ...; a key
+    appears with its first launch)."""
     flash_attention_bhsd.launches = 0
     flash_attention_bhsd.variant_launches = dict.fromkeys(VARIANTS, 0)
+    flash_attention_bhsd.mask_launches = {}
 
 
-# kernel launches, all and by kernel; chip_smoke resets and reads them
+# kernel launches, all, by kernel and by kernel and mask; chip_smoke
+# resets and reads them
 reset_launch_counts()

@@ -2,8 +2,11 @@
 
 Default: serve a reduced config (prefill a prompt batch, then
 greedy-decode).  ``--production`` serves the full config for real on the
-card, with bf16 parameters drawn from seed 0; the JAX launcher only
-lowers a dry run there, which has no torch form.
+card, with bf16 parameters drawn from seed 0, once it has checked that
+they fit the device's memory; the JAX launcher only lowers a dry run
+there, which has no torch form.  Archs with a frontend (the VLM's patch
+embeddings, the encoder-decoder's speech frames) get stub frontend
+embeddings drawn after the prompt from the same generator, as in JAX.
 
 Example::
 
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 
@@ -22,38 +26,61 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import LM
+from repro_torch.models.layers import resolve_device
 
-__all__ = ["prefill", "greedy_decode", "main"]
+__all__ = ["prefill", "greedy_decode", "check_fits", "main"]
 
 _log = logging.getLogger(__name__)
 
 
 @torch.no_grad()
-def prefill(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+def prefill(model: LM, tokens: torch.Tensor, frontend=None) -> torch.Tensor:
     """Last-position logits [B, V] of a prompt batch (the JAX prefill
-    step's body).  Like it, this fills no KV cache."""
-    return model(tokens, last_only=True)[:, -1]
+    step's body), with the request batch's ``frontend`` embeddings where
+    the arch has a frontend.  Like it, this fills no KV cache."""
+    return model(tokens, frontend, last_only=True)[:, -1]
 
 
 @torch.no_grad()
-def greedy_decode(model: LM, prompt: torch.Tensor,
-                  new_tokens: int) -> torch.Tensor:
+def greedy_decode(model: LM, prompt: torch.Tensor, new_tokens: int,
+                  frontend=None) -> torch.Tensor:
     """Prefill via teacher-forced decode steps, then greedy generation.
+    The cross-attention memory of ``frontend`` is encoded once and read
+    by every step.
 
     Returns the generated tokens [B, new_tokens]."""
     bsz, plen = prompt.shape
     max_len = plen + new_tokens + 1
     cache = model.init_cache(bsz, max_len, dtype=torch.float32)
+    memory = model.encode_memory(frontend)
     logits = None
     for t in range(plen):
-        logits, cache = model.decode_step(cache, prompt[:, t:t + 1], t)
+        logits, cache = model.decode_step(cache, prompt[:, t:t + 1], t, memory=memory)
     out = []
     tok = logits[:, -1:].argmax(dim=-1)
     for t in range(plen, plen + new_tokens):
         out.append(tok)
-        logits, cache = model.decode_step(cache, tok, t)
+        logits, cache = model.decode_step(cache, tok, t, memory=memory)
         tok = logits[:, -1:].argmax(dim=-1)
     return torch.cat(out, dim=1)
+
+
+def _device_memory_bytes(device: torch.device) -> int:
+    """What ``device`` holds: the card's memory, or the host's for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def check_fits(cfg, device: torch.device) -> None:
+    """Raise ``ValueError`` before anything is allocated when ``cfg``'s bf16
+    weights alone exceed the device's memory (whole jamba_15_large and
+    llama32_vision_90b do not fit one card)."""
+    need = cfg.total_params() * 2
+    have = _device_memory_bytes(device)
+    if need > have:
+        raise ValueError(f"{cfg.name}: its bf16 weights take {need} bytes "
+                         f"({need / 1e9:.1f} GB), more than the {have} bytes of {device}")
 
 
 def _sync(device: torch.device) -> None:
@@ -76,6 +103,7 @@ def main(argv=None) -> int:
 
     if args.production:
         cfg = get_config(args.arch)
+        check_fits(cfg, resolve_device(args.device))
         model = LM(cfg, seed=0, device=args.device)
     else:
         cfg = get_smoke_config(args.arch)
@@ -87,9 +115,14 @@ def main(argv=None) -> int:
     prompt = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         dtype=torch.int64, device=device)
+    frontend = None
+    if cfg.frontend_tokens:
+        frontend = torch.as_tensor(
+            rng.normal(size=(args.batch, cfg.frontend_tokens, cfg.frontend_dim)),
+            dtype=torch.float32, device=device)
 
     t0 = time.perf_counter()
-    logits = prefill(model, prompt)
+    logits = prefill(model, prompt, frontend)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     if not bool(torch.isfinite(logits).all()):
@@ -100,7 +133,7 @@ def main(argv=None) -> int:
               device)
 
     t0 = time.perf_counter()
-    out = greedy_decode(model, prompt, args.tokens)
+    out = greedy_decode(model, prompt, args.tokens, frontend)
     _sync(device)
     dt = time.perf_counter() - t0
     _log.info("generated %s tokens in %.3fs (%.1f tok/s) on %s",

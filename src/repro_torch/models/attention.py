@@ -7,19 +7,24 @@
   :func:`_chunked_mha`), so the CPU numerics are the JAX model's.
 * :func:`decode_attention` — one new query against a KV cache, plain
   torch like the JAX package's jnp code.
+* :func:`cross_attention` — queries attend to a fixed memory (VLM
+  frontend tokens / encoder output): the chunked scan on every device.
 
 The JAX code asks its dots for f32 results
 (``preferred_element_type``); here that is an f32 product of the
-operands upcast to f32, which is exact for bf16 inputs.  Cross-attention
-arrives with the enc-dec slice.
+operands upcast to f32, which is exact for bf16 inputs.  As in JAX, each
+KV chunk of the scan is checkpointed under grad: the backward pass
+recomputes a chunk's scores and probabilities instead of saving them.
 """
 from __future__ import annotations
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.kernels import ops
 
-__all__ = ["gqa_attention", "decode_attention", "repeat_kv"]
+__all__ = ["gqa_attention", "decode_attention", "cross_attention", "repeat_kv"]
 
 _NEG_INF = -1e30
 
@@ -54,6 +59,17 @@ def _chunk_mask(start, chunk, sk, q_pos, causal, sliding_window):
     return mask                                                  # [Sq, chunk]
 
 
+def _scan_chunks(step, carry, kc, vc, n_chunks):
+    """``carry = step(carry, kb, vb, c)`` over the KV chunks, each chunk
+    checkpointed under grad (``jax.checkpoint`` on the JAX scan's body)."""
+    for c in range(n_chunks):
+        if torch.is_grad_enabled():
+            carry = checkpoint(step, carry, kc[:, c], vc[:, c], c, use_reentrant=False)
+        else:
+            carry = step(carry, kc[:, c], vc[:, c], c)
+    return carry
+
+
 def _chunked_mha(q, k, v, *, causal: bool, chunk: int,
                  sliding_window: int = 0, q_offset: int = 0):
     """Online-softmax attention, scanning over KV chunks.
@@ -67,11 +83,8 @@ def _chunked_mha(q, k, v, *, causal: bool, chunk: int,
     kc, vc, n_chunks = _pad_chunks(k, v, chunk)
     q_pos = q_offset + torch.arange(sq, device=q.device)
 
-    m = torch.full((b, h, sq), _NEG_INF, device=q.device)
-    l = torch.zeros((b, h, sq), device=q.device)
-    acc = torch.zeros((b, h, sq, hd), device=q.device)
-    for c in range(n_chunks):
-        kb, vb = kc[:, c], vc[:, c]
+    def step(carry, kb, vb, c):
+        m, l, acc = carry
         s = torch.einsum("bqhd,bkhd->bhqk", qs, kb.float())
         mask = _chunk_mask(c * chunk, chunk, sk, q_pos, causal, sliding_window)
         s = torch.where(mask[None, None], s, s.new_tensor(_NEG_INF))
@@ -81,8 +94,12 @@ def _chunked_mha(q, k, v, *, causal: bool, chunk: int,
         l = l * corr + p.sum(dim=-1)
         # p is rounded to V's dtype before the PV dot, as JAX does
         pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vb.dtype).float(), vb.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        return m_new, l, acc * corr[..., None] + pv
+
+    m, l, acc = _scan_chunks(step, (torch.full((b, h, sq), _NEG_INF, device=q.device),
+                                    torch.zeros((b, h, sq), device=q.device),
+                                    torch.zeros((b, h, sq, hd), device=q.device)),
+                             kc, vc, n_chunks)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)                      # [B, Sq, H, hd]
 
@@ -100,11 +117,8 @@ def _chunked_gqa(q, k, v, *, causal: bool, chunk: int,
     kc, vc, n_chunks = _pad_chunks(k, v, chunk)
     q_pos = torch.arange(sq, device=q.device)
 
-    m = torch.full((b, hkv, sq, g), _NEG_INF, device=q.device)
-    l = torch.zeros((b, hkv, sq, g), device=q.device)
-    acc = torch.zeros((b, hkv, sq, g, hd), device=q.device)
-    for c in range(n_chunks):
-        kb, vb = kc[:, c], vc[:, c]
+    def step(carry, kb, vb, c):
+        m, l, acc = carry
         s = torch.einsum("bqhgd,bkhd->bhqgk", qs, kb.float())
         mask = _chunk_mask(c * chunk, chunk, sk, q_pos, causal, sliding_window)
         s = torch.where(mask[None, None, :, None, :], s, s.new_tensor(_NEG_INF))
@@ -113,8 +127,12 @@ def _chunked_gqa(q, k, v, *, causal: bool, chunk: int,
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bhqgk,bkhd->bhqgd", p.to(vb.dtype).float(), vb.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        return m_new, l, acc * corr[..., None] + pv
+
+    m, l, acc = _scan_chunks(step, (torch.full((b, hkv, sq, g), _NEG_INF, device=q.device),
+                                    torch.zeros((b, hkv, sq, g), device=q.device),
+                                    torch.zeros((b, hkv, sq, g, hd), device=q.device)),
+                             kc, vc, n_chunks)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3, 4).to(q.dtype)     # [B, Sq, Hkv, G, hd]
 
@@ -178,3 +196,22 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     out = torch.einsum("bhqgk,bkhd->bhqgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.permute(0, 2, 1, 3, 4).reshape(b, one, hq, hd).to(q.dtype)
+
+
+def cross_attention(q, k, v, chunk: int = 512) -> torch.Tensor:
+    """Non-causal attention of q [B,Sq,Hq,hd] over memory k/v [B,Sm,Hkv,hd].
+
+    The chunked scan (``chunk`` is its KV chunk) on every device: no TPU
+    kernel computes attention over a memory of another length than the
+    queries (the Pallas kernel and the port's Hopper kernel take one S for
+    q and k), so the JAX model runs its jnp scan here too.
+    """
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    groups = hq // hkv
+    chunk = min(chunk, k.shape[1])
+    if groups == 1:
+        return _chunked_mha(q, k, v, causal=False, chunk=chunk)
+    qg = q.reshape(b, sq, hkv, groups, hd)
+    og = _chunked_gqa(qg, k, v, causal=False, chunk=chunk)
+    return og.reshape(b, sq, hq, hd)

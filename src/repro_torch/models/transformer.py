@@ -1,18 +1,27 @@
 """Decoder LM — port of ``repro/models/transformer.py``.
 
-The port has the attention path with a dense FFN (llama3_8b,
-granite_8b, minitron_4b, qwen25_32b) or a MoE one (olmoe_1b_7b,
-mixtral_8x7b) and the attention-free RWKV6 path (rwkv6_1b6), each with
-serving (``forward``, ``decode_step``; the attention cache in bf16 or,
-with ``kv_dtype="int8"``, quantized) and the training loss (``loss``,
-with ``remat`` "none", "full" or "dots").  Mamba, cross-attention and
-encoder–decoder layers arrive with their own slices; a config that needs
-them raises here.
+One ``LM`` class dispatches per-layer kinds from ``ModelConfig``, as the
+JAX one does:
+
+* dense / MoE decoders (llama3_8b, granite_8b, minitron_4b, qwen25_32b,
+  olmoe_1b_7b, mixtral_8x7b),
+* attention-free RWKV6 (rwkv6_1b6),
+* hybrid Mamba/attention with MoE (jamba_15_large),
+* a decoder with periodic cross-attention to stub patch embeddings
+  (llama32_vision_90b),
+* encoder–decoder with cross-attention in every decoder layer
+  (seamless_m4t_v2; stub frame embeddings feed the encoder),
+
+each with serving (``forward``, ``decode_step``, ``encode_memory``; the
+attention cache in bf16 or, with ``kv_dtype="int8"``, quantized) and the
+training loss (``loss``, with ``remat`` "none", "full" or "dots").
 
 The parameters keep the JAX tree's key paths and layouts, so weights
 map 1:1 (:mod:`repro_torch.convert`): ``embed``, ``final_norm``,
 ``lm_head`` and ``blocks[j]``, each leaf stacked ``[n_rep, ...]`` over
-the repeats of period position ``j``; weights are ``[in, out]`` and
+the repeats of period position ``j``; for enc-dec archs ``encoder``
+(stacked ``[n_encoder_layers, ...]``) and ``enc_norm``; ``frontend_proj``
+where the frontend's width is not d_model.  Weights are ``[in, out]`` and
 applied as ``x @ W``.  ``jax.lax.scan`` over the stacked layers is a
 Python loop over the repeats.  The parameters do not require grad, so
 serving builds no graph; the trainer turns grad on for what it trains.
@@ -34,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from . import attention as attn
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .layers import (Initializer, apply_rope, embed, resolve_device,
                      rms_norm, rope_frequencies, swiglu, unembed)
 
@@ -47,21 +57,15 @@ class LayerSpec:
     cross: bool
 
 
+_ENC_SPEC = LayerSpec("attn", False, False)     # an encoder layer
+
+
 def _lcm(*vals: int) -> int:
     out = 1
     for v in vals:
         if v > 1:
             out = out * v // math.gcd(out, v)
     return out
-
-
-def _later_slice(cfg: ModelConfig, spec: LayerSpec) -> str | None:
-    """The port slice that brings what ``spec`` needs, or None if here."""
-    if cfg.is_encdec or spec.cross:
-        return "cross-attention / encoder-decoder"
-    if spec.kind == "mamba":
-        return "SSM"
-    return None
 
 
 # JAX's ``checkpoint_dots_with_no_batch_dims``: the products without a
@@ -108,7 +112,12 @@ class _Tree(nn.Module):
 
 
 def _stack_into(dst: dict | None, layer: dict, r: int, n_rep: int) -> dict:
-    """Write ``layer`` into slot ``r`` of the stacked tree ``dst``."""
+    """Write ``layer`` into slot ``r`` of the stacked tree ``dst``.  A stack
+    of one repeat is the layer itself, viewed with a leading dim of 1: no
+    copy (a full-width jamba MoE layer is 19 GB in bf16)."""
+    if n_rep == 1:
+        return {k: (_stack_into(None, v, r, 1) if isinstance(v, dict) else v[None])
+                for k, v in layer.items()}
     if dst is None:
         dst = {k: (_stack_into(None, v, r, n_rep) if isinstance(v, dict)
                    else v.new_empty((n_rep,) + tuple(v.shape)))
@@ -127,10 +136,13 @@ class LM(nn.Module):
     Parameters are drawn at construction from the port's
     :class:`Initializer` seeded with ``seed`` (load other weights with
     :func:`repro_torch.convert.load_jax_params`).  ``attn_chunk`` is the
-    KV chunk of the CPU attention scan and ``rwkv_chunk`` the chunk of
-    the CPU WKV (:func:`repro_torch.models.rwkv.wkv_chunked`); on the
-    card both run kernels.  ``capacity_factor`` sizes each expert's
-    capacity in MoE layers (:func:`repro_torch.models.moe.moe_capacity`).
+    KV chunk of the CPU attention scan (and of cross-attention on every
+    device) and ``rwkv_chunk`` the chunk of the CPU WKV
+    (:func:`repro_torch.models.rwkv.wkv_chunked`); on the card both
+    self-attention and WKV run kernels.  ``mamba_chunk`` is the chunk of
+    the Mamba selective scan (:func:`repro_torch.models.ssm.mamba_seq`).
+    ``capacity_factor`` sizes each expert's capacity in MoE layers
+    (:func:`repro_torch.models.moe.moe_capacity`).
     ``max_seq`` sizes the RoPE table that decode reads (default 8192).
     ``remat`` is the activation checkpointing of each layer under a loss:
     "none" saves every layer's activations, "full" recomputes each layer
@@ -143,7 +155,8 @@ class LM(nn.Module):
     """
 
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.bfloat16,
-                 attn_chunk: int = 512, capacity_factor: float = 1.25,
+                 attn_chunk: int = 512, mamba_chunk: int = 256,
+                 capacity_factor: float = 1.25,
                  max_seq: int = 0, rwkv_chunk: int = 16, remat: str = "none",
                  kv_dtype: str = "bf16", seed: int = 0,
                  device="cuda") -> None:
@@ -154,6 +167,7 @@ class LM(nn.Module):
         self.cfg = cfg
         self.param_dtype = param_dtype
         self.attn_chunk = attn_chunk
+        self.mamba_chunk = mamba_chunk
         self.capacity_factor = capacity_factor
         self.max_seq = max_seq or 8192
         self.rwkv_chunk = rwkv_chunk
@@ -170,12 +184,6 @@ class LM(nn.Module):
         self.period = p
         self.n_rep = cfg.n_layers // p
         self.specs = [self._spec(j) for j in range(p)]
-        for spec in self.specs:
-            later = _later_slice(cfg, spec)
-            if later:
-                raise NotImplementedError(
-                    f"{cfg.name}: {spec} layers are not ported yet; they "
-                    f"arrive with the {later} slice")
         self.init_params(seed, device)
         # Built once here: the JAX decode_step rebuilds the same f32
         # table for max_seq on every call.
@@ -201,6 +209,10 @@ class LM(nn.Module):
         if spec.kind == "rwkv":
             return {"norm": init.ones((d,)),
                     **rwkv_mod.init_rwkv(init, d, cfg.n_heads, hd)}
+        if spec.kind == "mamba":
+            return {"norm": init.ones((d,)),
+                    **ssm_mod.init_mamba(init, d, cfg.mamba_d_state,
+                                         cfg.mamba_d_conv, cfg.mamba_expand)}
         mixer = {
             "norm": init.ones((d,)),
             "wq": init.normal((d, cfg.n_heads * hd), fan_in=d),
@@ -217,7 +229,16 @@ class LM(nn.Module):
     def _init_layer(self, init: Initializer, spec: LayerSpec) -> dict:
         cfg = self.cfg
         d = cfg.d_model
-        p = {"mixer": self._init_mixer(init, spec), "ffn_norm": init.ones((d,))}
+        p = {"mixer": self._init_mixer(init, spec)}
+        if spec.cross:
+            p["cross"] = {
+                "norm": init.ones((d,)),
+                "wq": init.normal((d, cfg.n_heads * cfg.hd), fan_in=d),
+                "wk": init.normal((d, cfg.n_kv_heads * cfg.hd), fan_in=d),
+                "wv": init.normal((d, cfg.n_kv_heads * cfg.hd), fan_in=d),
+                "wo": init.normal((cfg.n_heads * cfg.hd, d), fan_in=cfg.n_heads * cfg.hd),
+            }
+        p["ffn_norm"] = init.ones((d,))
         if spec.moe:
             p["moe"] = moe_mod.init_moe(init, d, cfg.d_ff, cfg.n_experts)
         else:
@@ -243,15 +264,22 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = param(init.normal((cfg.vocab_size, cfg.d_model),
                                              fan_in=cfg.d_model))
-        blocks = []
-        for spec in self.specs:
-            # filled repeat by repeat: no second copy of the stack
-            stacked = None
-            for r in range(self.n_rep):
-                stacked = _stack_into(stacked, self._init_layer(init, spec),
-                                      r, self.n_rep)
-            blocks.append(_Tree(stacked))
-        self.blocks = nn.ModuleList(blocks)
+        self.blocks = nn.ModuleList(
+            self._init_stack(init, spec, self.n_rep) for spec in self.specs)
+        if cfg.is_encdec:
+            # encoder: a plain non-causal attention stack
+            self.encoder = self._init_stack(init, _ENC_SPEC, cfg.n_encoder_layers)
+            self.enc_norm = param(init.ones((cfg.d_model,)))
+        if cfg.frontend_tokens and cfg.frontend_dim != cfg.d_model:
+            self.frontend_proj = param(init.normal((cfg.frontend_dim, cfg.d_model),
+                                                   fan_in=cfg.frontend_dim))
+
+    def _init_stack(self, init: Initializer, spec: LayerSpec, n: int) -> _Tree:
+        # filled repeat by repeat: no second copy of the stack
+        stacked = None
+        for r in range(n):
+            stacked = _stack_into(stacked, self._init_layer(init, spec), r, n)
+        return _Tree(stacked)
 
     def _table(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.lm_head
@@ -279,15 +307,33 @@ class LM(nn.Module):
                 k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
                 v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
 
-    def _self_attn(self, p, x, cos_sin, positions):
+    def _self_attn(self, p, x, cos_sin, positions, causal=True):
         cfg = self.cfg
         b, s, _ = x.shape
         h = rms_norm(x, p["norm"], cfg.norm_eps)
         q, k, v = self._qkv(p, h)
         q = apply_rope(q, cos_sin, positions)
         k = apply_rope(k, cos_sin, positions)
-        o = attn.gqa_attention(q, k, v, causal=True, chunk=self.attn_chunk,
+        o = attn.gqa_attention(q, k, v, causal=causal, chunk=self.attn_chunk,
                                sliding_window=cfg.sliding_window)
+        o = o.reshape(b, s, cfg.n_heads * cfg.hd)
+        return o @ p["wo"].to(x.dtype)
+
+    def _cross_attn(self, p, x, memory):
+        """memory: [B, M, d] (frontend embeddings / encoder output), its K
+        and V computed anew at every call (decode steps included), as in
+        JAX."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        m = memory.shape[1]
+        h = rms_norm(x, p["norm"], cfg.norm_eps)
+        q = h @ p["wq"].to(x.dtype)
+        k = memory @ p["wk"].to(x.dtype)
+        v = memory @ p["wv"].to(x.dtype)
+        o = attn.cross_attention(q.reshape(b, s, cfg.n_heads, cfg.hd),
+                                 k.reshape(b, m, cfg.n_kv_heads, cfg.hd),
+                                 v.reshape(b, m, cfg.n_kv_heads, cfg.hd),
+                                 chunk=self.attn_chunk)
         o = o.reshape(b, s, cfg.n_heads * cfg.hd)
         return o @ p["wo"].to(x.dtype)
 
@@ -302,56 +348,103 @@ class LM(nn.Module):
         return swiglu(h, f["w_gate"].to(x.dtype), f["w_up"].to(x.dtype),
                       f["w_down"].to(x.dtype)), 0.0
 
-    def _layer_seq(self, p, spec, x, cos_sin, positions):
+    def _layer_seq(self, p, spec, x, memory, cos_sin, positions):
         """Full-sequence layer (prefill): (x, aux).  The JAX layer also
-        returns its k/v, which prefill drops; so does this one."""
+        returns its k/v, which prefill drops; so does this one.  A cross
+        layer given no memory skips its cross-attention, as in JAX."""
         cfg = self.cfg
-        if spec.kind == "rwkv":
+        if spec.kind == "attn":
+            x = x + self._self_attn(p["mixer"], x, cos_sin, positions)
+        elif spec.kind == "mamba":
+            h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
+            x = x + ssm_mod.mamba_seq(p["mixer"], h, chunk=self.mamba_chunk)
+        else:  # rwkv
             h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
             x = x + rwkv_mod.rwkv_seq(p["mixer"], h, cfg.n_heads, cfg.hd,
                                       cfg.norm_eps, chunk=self.rwkv_chunk)
-        else:
-            x = x + self._self_attn(p["mixer"], x, cos_sin, positions)
+        if spec.cross and memory is not None:
+            x = x + self._cross_attn(p["cross"], x, memory)
         y, aux = self._ffn(p, spec, x)
         return x + y, aux
 
     # ------------------------------------------------------------------ #
     # forward (prefill logits)
     # ------------------------------------------------------------------ #
-    def hidden_states(self, tokens: torch.Tensor):
+    def _remat(self) -> dict | None:
+        """``checkpoint`` keywords of the layer policy (None: no checkpoint)."""
+        return {"full": {}, "dots": {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}}.get(self.remat)
+
+    def _frontend_memory(self, frontend, dtype):
+        if frontend is None:
+            return None
+        mem = frontend.to(dtype)
+        proj = getattr(self, "frontend_proj", None)
+        return mem if proj is None else mem @ proj.to(dtype)
+
+    def _encode(self, memory):
+        """Encoder stack over frontend embeddings (enc-dec archs): each
+        layer non-causal self-attention and a dense FFN, under the layer
+        policy of ``remat``."""
+        m = memory.shape[1]
+        cos_sin = self._rope(m)
+        positions = torch.arange(m, device=memory.device)[None, :]
+        remat = self._remat()
+        x = memory
+        for r in range(self.cfg.n_encoder_layers):
+            if remat is None:
+                x = self._enc_layer(r, x, cos_sin, positions)
+            else:
+                x = checkpoint(self._enc_layer, r, x, cos_sin, positions,
+                               use_reentrant=False, **remat)
+        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+
+    def _enc_layer(self, r, x, cos_sin, positions):
+        lp = self.encoder.rep(r)
+        x = x + self._self_attn(lp["mixer"], x, cos_sin, positions, causal=False)
+        return x + self._ffn(lp, _ENC_SPEC, x)[0]
+
+    def hidden_states(self, tokens: torch.Tensor, frontend=None):
         """(final-norm hidden states [B, S, d], MoE aux loss summed over
-        the layers: 0.0 without MoE layers)."""
+        the layers: 0.0 without MoE layers).  ``frontend`` [B, M,
+        frontend_dim]: the stub embeddings that cross layers attend to
+        (through the encoder in enc-dec archs); without it they skip
+        their cross-attention."""
         x = embed(self.embed, tokens).to(self.param_dtype)
+        memory = self._frontend_memory(frontend, x.dtype)
+        if self.cfg.is_encdec and memory is not None:
+            memory = self._encode(memory)
         s = x.shape[1]
         cos_sin = self._rope(max(s, 1))
         positions = torch.arange(s, device=x.device)[None, :]
-        remat = {"full": {}, "dots": {"context_fn": functools.partial(
-            create_selective_checkpoint_contexts, _save_dots)}}.get(self.remat)
+        remat = self._remat()
         aux_total = 0.0
         # position-major like the JAX scan: every repeat of position 0,
         # then of position 1, ..., the aux summed in that order
         for spec, block in zip(self.specs, self.blocks):
             for r in range(self.n_rep):
                 if remat is None:
-                    x, aux = self._layer_seq(block.rep(r), spec, x, cos_sin, positions)
+                    x, aux = self._layer_seq(block.rep(r), spec, x, memory, cos_sin,
+                                             positions)
                 else:
-                    x, aux = checkpoint(self._rep_layer, block, r, spec, x, cos_sin,
-                                        positions, use_reentrant=False, **remat)
+                    x, aux = checkpoint(self._rep_layer, block, r, spec, x, memory,
+                                        cos_sin, positions, use_reentrant=False, **remat)
                 aux_total = aux_total + aux
         return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux_total
 
-    def _rep_layer(self, block, r, spec, x, cos_sin, positions):
+    def _rep_layer(self, block, r, spec, x, memory, cos_sin, positions):
         # the repeat's views are taken inside, so the checkpoint saves
         # none of them
-        return self._layer_seq(block.rep(r), spec, x, cos_sin, positions)
+        return self._layer_seq(block.rep(r), spec, x, memory, cos_sin, positions)
 
-    def forward(self, tokens: torch.Tensor, last_only: bool = False):
-        """Causal logits [B, S, V] (f32). tokens: [B, S] int.
+    def forward(self, tokens: torch.Tensor, frontend=None, last_only: bool = False):
+        """Causal logits [B, S, V] (f32). tokens: [B, S] int; ``frontend``
+        as for :meth:`hidden_states`.
 
         ``last_only`` avoids materializing the [B, S, V] logits tensor —
         serving prefill only needs the final position.
         """
-        x, _ = self.hidden_states(tokens)
+        x, _ = self.hidden_states(tokens, frontend)
         if last_only:
             x = x[:, -1:]
         return unembed(x, self._table())
@@ -362,7 +455,8 @@ class LM(nn.Module):
     def loss(self, batch: dict, vocab_chunk: int = 512) -> torch.Tensor:
         """Next-token cross entropy (f32 scalar), chunked over the sequence
         so the [B, S, V] logits tensor is never resident.  batch:
-        ``tokens`` and ``labels`` [B, S] int, optional ``mask`` [B, S].
+        ``tokens`` and ``labels`` [B, S] int, optional ``mask`` [B, S] and
+        ``frontend`` [B, M, frontend_dim] (see :meth:`hidden_states`).
 
         The JAX function's rules: ``vocab_chunk`` splits S only when it
         divides S (else one chunk of S); a missing mask counts every
@@ -373,7 +467,7 @@ class LM(nn.Module):
         Each chunk is checkpointed, as ``@jax.checkpoint`` does there, so
         no chunk's [B, c, V] logits are saved for the backward pass.
         """
-        x, aux = self.hidden_states(batch["tokens"])
+        x, aux = self.hidden_states(batch["tokens"], batch.get("frontend"))
         labels = batch["labels"]
         table = self._table()
         b, s, _ = x.shape
@@ -415,15 +509,23 @@ class LM(nn.Module):
         of that shape and bf16 ``k_scale``/``v_scale`` of ``[..., 1]``
         (``dtype`` does not apply to them).  RWKV positions:
         ``{"last_x", "state"}`` of ``[n_rep, bsz, d]`` in ``dtype`` and
-        ``[n_rep, bsz, H, hd, hd]`` in f32 (``max_len`` does not enter).
+        ``[n_rep, bsz, H, hd, hd]`` in f32; Mamba positions: ``{"conv",
+        "ssm"}`` of ``[n_rep, bsz, d_conv - 1, d_in]`` in ``dtype`` and
+        ``[n_rep, bsz, d_in, d_state]`` in f32 (``max_len`` does not enter
+        either).  Cross layers keep no cache: their K/V come from the
+        memory at every step.
         """
         cfg = self.cfg
         dtype = dtype or self.param_dtype
         caches = []
         for spec in self.specs:
-            if spec.kind == "rwkv":
-                one = rwkv_mod.init_rwkv_cache(bsz, cfg.d_model, cfg.n_heads,
-                                               cfg.hd, dtype, self.device)
+            if spec.kind != "attn":
+                one = (rwkv_mod.init_rwkv_cache(bsz, cfg.d_model, cfg.n_heads, cfg.hd,
+                                                dtype, self.device)
+                       if spec.kind == "rwkv" else
+                       ssm_mod.init_mamba_cache(bsz, cfg.d_model, cfg.mamba_d_state,
+                                                cfg.mamba_d_conv, cfg.mamba_expand,
+                                                dtype, self.device))
                 caches.append({name: t.expand((self.n_rep,) + t.shape).contiguous()
                                for name, t in one.items()})
                 continue
@@ -438,26 +540,41 @@ class LM(nn.Module):
                 caches.append({"k": zeros(shape, dtype), "v": zeros(shape, dtype)})
         return caches
 
-    def _layer_step(self, p, spec, x, cache, r, cos_sin, pos):
+    def _layer_step(self, p, spec, x, cache, r, cos_sin, pos, memory):
         """One-token layer step. x: [B,1,d]; pos: [B] cursor per row.
 
         Writes this step's entries into repeat ``r`` of the stacked
         ``cache`` in place: k/v at the cursor (quantized, with their
-        scales, in an int8 cache), or RWKV's last input and state.
+        scales, in an int8 cache), RWKV's last input and state, or Mamba's
+        conv window and state.  A cross layer given no memory skips its
+        cross-attention, as in JAX.
         """
         cfg = self.cfg
-        if spec.kind == "rwkv":
+        if spec.kind == "attn":
+            x = x + self._attn_step(p["mixer"], x, cache, r, cos_sin, pos)
+        else:
             h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
-            o, new = rwkv_mod.rwkv_step(
-                p["mixer"], h, {name: t[r] for name, t in cache.items()},
-                cfg.n_heads, cfg.hd, cfg.norm_eps)
+            mine = {name: t[r] for name, t in cache.items()}
+            if spec.kind == "rwkv":
+                o, new = rwkv_mod.rwkv_step(p["mixer"], h, mine, cfg.n_heads, cfg.hd,
+                                            cfg.norm_eps)
+            else:
+                o, new = ssm_mod.mamba_step(p["mixer"], h, mine)
             for name, t in new.items():
                 cache[name][r].copy_(t)
             x = x + o
-            return x + self._ffn(p, spec, x)[0]
+        if spec.cross and memory is not None:
+            x = x + self._cross_attn(p["cross"], x, memory)
+        # a MoE layer routes the [B, 1, d] step as JAX does: B groups of
+        # one token, each expert's capacity 1
+        return x + self._ffn(p, spec, x)[0]
+
+    def _attn_step(self, p, x, cache, r, cos_sin, pos):
+        """Self-attention of one token over the cache; writes its k/v."""
+        cfg = self.cfg
         b = x.shape[0]
-        h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
-        q, k, v = self._qkv(p["mixer"], h)
+        h = rms_norm(x, p["norm"], cfg.norm_eps)
+        q, k, v = self._qkv(p, h)
         positions = pos[:, None]
         q = apply_rope(q, cos_sin, positions)
         k = apply_rope(k, cos_sin, positions)
@@ -481,24 +598,32 @@ class LM(nn.Module):
         o = attn.decode_attention(q, k_cache, v_cache, pos + 1,
                                   sliding_window=cfg.sliding_window)
         o = o.reshape(b, 1, cfg.n_heads * cfg.hd)
-        x = x + o @ p["mixer"]["wo"].to(x.dtype)
-        # a MoE layer routes the [B, 1, d] step as JAX does: B groups of
-        # one token, each expert's capacity 1
-        return x + self._ffn(p, spec, x)[0]
+        return o @ p["wo"].to(x.dtype)
 
-    def decode_step(self, cache: list, tokens: torch.Tensor, pos):
+    def decode_step(self, cache: list, tokens: torch.Tensor, pos, memory=None):
         """Logits [B, 1, V] (f32) for one new token per row.
 
         tokens: [B, 1] int; pos: int (whole batch at one cursor) or [B]
         int tensor (continuous batching: per-slot cursors), the current
-        cache length.  Unlike the JAX function, which returns a new
-        cache, this writes ``cache`` in place and returns it.
+        cache length.  ``memory``: optional [B, M, d] cross-attention
+        memory (:meth:`encode_memory`), already projected/encoded.  Unlike
+        the JAX function, which returns a new cache, this writes ``cache``
+        in place and returns it.
         """
         x = embed(self.embed, tokens).to(self.param_dtype)
         pos = torch.as_tensor(pos, device=x.device).expand(x.shape[0])
         for spec, block, c in zip(self.specs, self.blocks, cache):
             for r in range(self.n_rep):
                 x = self._layer_step(block.rep(r), spec, x, c, r,
-                                     self.cos_sin, pos)
+                                     self.cos_sin, pos, memory)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return unembed(x, self._table()), cache
+
+    def encode_memory(self, frontend):
+        """Cross-attention memory [B, M, d] of a request batch's ``frontend``
+        (None: None), prepared once: projected where the config says so,
+        then through the encoder in enc-dec archs."""
+        mem = self._frontend_memory(frontend, self.param_dtype)
+        if mem is not None and self.cfg.is_encdec:
+            mem = self._encode(mem)
+        return mem

@@ -33,7 +33,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.data.pipeline", "repro_torch.optim.adamw",
                  "repro_torch.optim.schedules", "repro_torch.checkpoint.checkpointer",
                  "repro_torch.runtime.fault", "repro_torch.runtime.train_loop",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.models.ssm",
+                 "repro_torch.configs.jamba_15_large",
+                 "repro_torch.configs.llama32_vision_90b",
+                 "repro_torch.configs.seamless_m4t_v2"):
         assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -60,6 +60,8 @@ _SHAPES = [
     (2, 300, 8, 2, 64),
     (2, 300, 8, 2, 128),
     (1, 4096, 16, 16, 128),  # olmoe_1b_7b's MHA at its training length
+    (1, 4096, 64, 8, 128),   # jamba_15_large's and llama32_vision_90b's GQA 8:1
+    (1, 4096, 16, 16, 64),   # seamless_m4t_v2's MHA at hd 64 (its encoder is non-causal)
 ]
 
 
@@ -111,6 +113,22 @@ def test_flash_kernel_variant_counts(card, dtype, hd, variant):
     assert flash_attention_bhsd.launches == total + 1
     want = {name: n + (name == variant) for name, n in counts.items()}
     assert flash_attention_bhsd.variant_launches == want
+
+
+@pytest.mark.cuda
+def test_flash_kernel_counts_launches_by_mask(card):
+    """The causal and the full mask are counted apart, for the forward
+    and the backward kernels (seamless_m4t_v2's encoder is non-causal)."""
+    fa_mod.reset_launch_counts()
+    q = torch.randn(16, 300, 64, device=card).bfloat16().requires_grad_()
+    kv = torch.randn(16, 300, 64, device=card).bfloat16()
+    with torch.no_grad():
+        flash_attention_bhsd(q, kv, kv, causal=True)
+    flash_attention_bhsd(q, kv, kv, causal=False).sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.mask_launches == {
+        "wgmma/causal": 1, "wgmma/full": 1, "backward_wgmma/full": 1}
+    assert flash_attention_bhsd.launches == 3
 
 
 @pytest.mark.cuda
@@ -237,11 +255,12 @@ def test_flash_backward_rejects_what_it_does_not_take(card):
 # The tensor-core backward: its 128-row dQ tiles and 128-key dK/dV blocks
 # with 64-row q steps, one row, one short of and one past each, ragged S
 # over many tiles, GQA 4:1 at both head dims, and the training shapes'
-# heads at S=4096 (llama3_8b's GQA 32/8, olmoe_1b_7b's MHA 16/16).
+# heads at S=4096 (llama3_8b's GQA 32/8, olmoe_1b_7b's MHA 16/16 at hd 128,
+# seamless_m4t_v2's at hd 64).
 _WGMMA_BWD_SHAPES = [(1, 1, 4, 1, 128), (1, 63, 4, 1, 64), (1, 65, 4, 1, 128),
                      (1, 127, 4, 1, 64), (1, 129, 4, 1, 128), (2, 300, 8, 2, 64),
                      (1, 1000, 8, 2, 128), (1, 1000, 16, 4, 64), (1, 4096, 32, 8, 128),
-                     (1, 4096, 16, 16, 128)]
+                     (1, 4096, 16, 16, 128), (1, 4096, 16, 16, 64)]
 
 
 @pytest.mark.cuda

@@ -1,8 +1,10 @@
 """Port parity: the training loss and its gradients, against
 ``jax.value_and_grad(LM.loss)`` on weights carried from JAX ``LM.init``.
 
-f32 on the CPU, where attention is the chunked scan and RWKV the chunked
-WKV, the JAX model's own numerics.  Tolerances: the loss to 1e-5
+f32 on the CPU, where attention is the chunked scan, RWKV the chunked
+WKV and Mamba the chunked selective scan (4-step chunks), the JAX model's
+own numerics; archs with a frontend get seeded frontend embeddings in the
+batch.  Tolerances: the loss to 1e-5
 absolute (about 2e-6 of its value, ln V ~ 6); every gradient leaf to
 atol 5e-5 and rtol 1e-4.  Both sides run the same graph in f32 and sum
 in other orders; the largest difference seen is 1e-5 (rwkv6_1b6, whose
@@ -11,7 +13,8 @@ largest entries are 0.3-1.6.  The MoE archs run at the default capacity
 factor of 1.25, where the smoke configs drop tokens; their loss carries
 0.01 of the summed load-balancing loss.  The port's ``remat="full"`` and
 ``"dots"`` recompute the same operations on the same inputs, so they
-equal ``"none"`` exactly.
+equal ``"none"`` exactly, the Mamba chunks' and the attention scan's
+own checkpoints nested inside (jamba, seamless's encoder).
 """
 import jax
 import jax.numpy as jnp
@@ -26,17 +29,18 @@ from repro_torch.models import LM
 from repro_torch.models import transformer as transformer_mod
 
 _ARCHS = ["llama3_8b", "granite_8b", "minitron_4b", "qwen25_32b", "rwkv6_1b6",
-          "olmoe_1b_7b", "mixtral_8x7b"]
+          "olmoe_1b_7b", "mixtral_8x7b", "jamba_15_large", "llama32_vision_90b",
+          "seamless_m4t_v2"]
 _LOSS_TOL = dict(atol=1e-5, rtol=0.0)
 _GRAD_TOL = dict(atol=5e-5, rtol=1e-4)
 
 
 def _pair(arch, remat="none"):
     cfg = get_smoke_config(arch)
-    jm = JaxLM(cfg, param_dtype=jnp.float32, attn_chunk=8, rwkv_chunk=4)
+    jm = JaxLM(cfg, param_dtype=jnp.float32, attn_chunk=8, rwkv_chunk=4, mamba_chunk=4)
     tree = jax.tree.map(np.asarray, jm.init(0))
-    tm = LM(cfg, param_dtype=torch.float32, attn_chunk=8, rwkv_chunk=4, remat=remat,
-            device="cpu")
+    tm = LM(cfg, param_dtype=torch.float32, attn_chunk=8, rwkv_chunk=4, mamba_chunk=4,
+            remat=remat, device="cpu")
     load_jax_params(tm, tree)
     for p in tm.parameters():
         p.requires_grad_(True)
@@ -44,8 +48,13 @@ def _pair(arch, remat="none"):
 
 
 def _batch(cfg, bsz=2, seq=16, seed=1):
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (bsz, seq + 1))
-    return {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (bsz, seq + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}
+    if cfg.frontend_tokens:
+        batch["frontend"] = rng.normal(
+            size=(bsz, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    return batch
 
 
 def _jax_loss_grads(jm, tree, batch, vocab_chunk):
@@ -128,12 +137,14 @@ def _assert_remat_equals_none(arch, remat):
         np.testing.assert_array_equal(g, grads_b[name], err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_1b6", "olmoe_1b_7b"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_1b6", "olmoe_1b_7b",
+                                  "jamba_15_large", "seamless_m4t_v2"])
 def test_remat_full_equals_none(arch):
     _assert_remat_equals_none(arch, "full")
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_1b6", "olmoe_1b_7b"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "rwkv6_1b6", "olmoe_1b_7b",
+                                  "jamba_15_large", "seamless_m4t_v2"])
 def test_remat_dots_equals_none(arch):
     _assert_remat_equals_none(arch, "dots")
 
