@@ -191,12 +191,40 @@ a non-zero exit if it fails:
                weights; then f32 at 4 encoder and 4 decoder layers: ``LM.loss``
                and every gradient leaf through the kernels vs the chunked
                attention scan, as phase 9
-20. kernels    the card's nvidia-smi line again, one JSON line listing every
+20. steps_prefill  ``build_prefill_step("llama3_8b", ...)`` at full depth
+               on a mesh of one (``make_local_mesh``): the DTensor step on
+               the plain model's own storage vs ``serve.prefill`` on 2 x
+               4096 tokens, within phase 2's bf16 bar; 32 tensor-core flash
+               launches a call; its time beside the plain call's
+21. steps_decode ``build_serve_step`` over caches of 4096 for 8 rows (4.3
+               GB, seeded values): logits and new cache entries vs
+               ``LM.decode_step`` at position 4095; no flash launch
+22. steps_train ``build_train_step("llama3_8b", ...)`` at 8 layers, B=1 x
+               S=4096, remat "full": 5 steps (16 forward and 8 backward
+               tensor-core launches a step), finite losses; the losses, m
+               and the f32 master of the first two steps vs the same steps
+               on plain tensors from the same seed (``STEPS_*`` bars); then
+               ``grad_accum=2`` at B=2 against the plain bf16-accumulator
+               route; the step time beside the Trainer's (phase 10)
+23. steps_rwkv_train ``build_train_step("rwkv6_1b6", ...)`` at full depth:
+               48 chunked WKV forwards (24 recomputed) and 24
+               ``backward_chunked`` a step, finite losses
+24. jamba_train jamba_15_large at full width, 1 layer (a Mamba mixer and a
+               dense FFN, 2.115 B parameters) through ``Trainer.step_fn`` as
+               phase 10: the Mamba path's backward on the card, falling
+               loss, split and peaks; f32 gradients vs the scan route
+25. vision_train llama32_vision_90b at full width, 1 layer at
+               cross_attn_period 1 (self- and cross-attention, 3.108 B
+               parameters; the 2-layer cut ran out of memory in AdamW) over
+               6404 frontend tokens, as phase 24: one flash forward and one
+               backward a step (the cross-attention launches none)
+26. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel (the flash forward also at olmoe_1b_7b's,
                jamba_15_large's, llama32_vision_90b's and seamless_m4t_v2's
                shapes and the tensor-core backward at olmoe_1b_7b's and
-               seamless_m4t_v2's, with their launches on those paths), and
-               the final ``{"ok": true, "device": ...}``.
+               seamless_m4t_v2's, with their launches on those paths; the
+               launches of phases 20-25 under ``launches_on_step_paths``),
+               and the final ``{"ok": true, "device": ...}``.
 
 Prefill calls and profile windows are timed after a full garbage
 collection, and each reports the collector's seconds inside it; the
@@ -224,18 +252,21 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.configs import ShapeConfig, get_config, get_smoke_config  # noqa: E402
-from repro_torch.convert import tree_leaves  # noqa: E402
+from repro_torch.configs import SHAPES, ShapeConfig, get_config, get_smoke_config  # noqa: E402
+from repro_torch.convert import flatten_tree, param_tree, tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.launch import (build_prefill_step, build_serve_step,  # noqa: E402
+                                build_train_step, make_local_mesh)
+from repro_torch.launch.steps import gathered, place_like, place_state  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.rwkv import wkv_chunked  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine  # noqa: E402
 from repro_torch.runtime import (FailureInjector, Request, ServeLoop, Trainer,  # noqa: E402
                                  TrainerConfig, run_with_restarts)
 
@@ -408,6 +439,39 @@ WKV_BWD_REL = {"du": 5e-5, "other": 6.25e-6}
 WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
 # full llama3_8b decode through the int8 and the bf16 cache: batch x steps
 KV_INT8 = (2, 64)
+
+# The step builders' cells on the card (phases 20-23), each on a mesh of
+# one, registered as the JAX tests register theirs: llama3_8b's prefill at
+# PREFILL at full depth; its train step at 8 layers on one sequence of
+# 4096, and with grad_accum 2 on two; its decode step over caches of 4096
+# for 8 rows (4.3 GB); rwkv6_1b6's train step at full depth
+STEPS_PREFILL = ShapeConfig("card_prefill", PREFILL[1], PREFILL[0], "prefill")
+STEPS_TRAIN = ShapeConfig("card_train", TRAIN_SHAPE[1], TRAIN_SHAPE[0], "train")
+STEPS_TRAIN_ACCUM = ShapeConfig("card_train_accum", TRAIN_SHAPE[1], 2, "train")
+STEPS_DECODE = ShapeConfig("card_decode", 4096, 8, "decode")
+for _shape in (STEPS_PREFILL, STEPS_TRAIN, STEPS_TRAIN_ACCUM, STEPS_DECODE):
+    SHAPES.setdefault(_shape.name, _shape)
+STEPS_TRAIN_STEPS = 5
+# Bars of a bundle's step against the same step on plain tensors.  On a
+# mesh of one the DTensor route runs the same kernels on the same storage,
+# so anything past rounding order is a fault: the loss to 1e-4 of its
+# value; AdamW's m to one bf16 ulp (2**-7) of each leaf's largest |m|,
+# the ulp of the bf16 gradient it is made of; the f32 master after the
+# second step (the first whose warmup scale is not 0) to twice that
+# step's update, lr 3e-4 x warmup 0.01 (a gradient entry that is noise
+# takes Adam's sign-like step either way)
+STEPS_LOSS_REL = 1e-4
+STEPS_M_REL = 2.0 ** -7
+STEPS_MASTER_ATOL = 2 * 3e-4 * 0.01
+# jamba_15_large trained at full width with 1 layer: layer 0, a Mamba
+# mixer with a dense FFN (2.115 B parameters, 33.8 GB of params, grads and
+# AdamW state).  llama32_vision_90b with 1 layer at cross_attn_period 1:
+# self- and cross-attention in one layer (3.108 B, 49.7 GB).  The 2-layer
+# cut at period 2 (3.964 B, 63.4 GB of state) ran out of the card's 79.2
+# GiB in AdamW's f32 temporaries of the 1.05 B-entry embedding (peak 80.5
+# GB; PERF.md §4)
+JAMBA_TRAIN_CUT = dict(n_layers=1)
+VISION_TRAIN_CUT = dict(n_layers=1, cross_attn_period=1)
 
 
 # Python's collector pauses in this process, (generation, seconds) each: a
@@ -2469,6 +2533,304 @@ def phase_seamless_train(cfg) -> dict:
     return row
 
 
+def seeded_tokens(cfg, b, s, seed) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def phase_steps_prefill(cfg, mesh) -> tuple:
+    """``build_prefill_step`` of full llama3_8b on the mesh of one: the
+    bundle's step on the DTensor parameters (the plain model's own storage)
+    against ``serve.prefill`` of the same model on ``PREFILL`` tokens,
+    within the bf16 bar of phase 2; 32 tensor-core flash launches a call.
+    Returns (the model, now on the bundle's placements, and the row)."""
+    model = LM(cfg, seed=SEED, device="cuda")
+    b, s = PREFILL
+    tokens = seeded_tokens(cfg, b, s, SEED + 21)
+    plain_secs = []
+    for _ in range(2):
+        plain, sec, _ = timed_call(lambda: serve.prefill(model, tokens))
+        plain_secs.append(sec)
+    bundle = build_prefill_step(cfg.name, STEPS_PREFILL.name, mesh, cfg=cfg)
+    params, _ = place_state(bundle, model)
+    inputs = place_like({"tokens": tokens}, {"tokens": bundle.input_specs["tokens"]})
+    secs, launches = [], []
+    for _ in range(2):
+        reset_launches()
+        logits, sec, _ = timed_call(lambda: bundle.step_fn(params, **inputs))
+        secs.append(sec)
+        launches.append(dict(fa.flash_attention_bhsd.variant_launches))
+    logits = logits.to_local()
+    ratio = limit_ratio(logits, plain, *TOL["bf16"])
+    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, mesh=list(mesh.shape),
+               policy=bundle.policy, placements=sorted({str(t.placements) for t in
+                                                        tree_leaves(params)}),
+               launches_per_call=launches, seconds=secs, tokens_per_s=b * s / secs[-1],
+               plain_seconds=plain_secs, plain_tokens_per_s=b * s / plain_secs[-1],
+               dtensor_over_plain=secs[-1] / plain_secs[-1],
+               max_abs_err=float((logits - plain).abs().max()), limit_ratio=ratio,
+               bit_equal=bool(torch.equal(logits, plain)), tol=TOL["bf16"])
+    emit("steps_prefill", **row)
+    check(tuple(logits.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          "step logits are not finite [B, V]")
+    check(all(n == flash_counts(wgmma=cfg.n_layers) for n in launches),
+          f"step prefill launches {launches}")
+    check(ratio <= 1.0, f"step logits differ from serve.prefill: {row}")
+    return model, row
+
+
+def phase_steps_decode(model, mesh) -> dict:
+    """``build_serve_step`` of full llama3_8b on the mesh of one at
+    ``STEPS_DECODE`` (caches of 4096 for 8 rows, 4.3 GB, filled with seeded
+    values): its logits and its new cache entries against
+    ``LM.decode_step`` at position S - 1 on a copy of the same caches; no
+    flash launch."""
+    cfg = model.cfg
+    b, s = STEPS_DECODE.global_batch, STEPS_DECODE.seq_len
+    bundle = build_serve_step(cfg.name, STEPS_DECODE.name, mesh, cfg=cfg)
+    params, _ = place_state(bundle, model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    cache = model.init_cache(b, s, dtype=torch.bfloat16)
+    for t in tree_leaves(cache):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    ref_cache = tree_map(lambda t: t.clone(), cache)
+    tokens = seeded_tokens(cfg, b, 1, SEED + 23)
+    inputs = place_like({"cache": cache, "tokens": tokens},
+                        {"cache": bundle.input_specs["cache"],
+                         "tokens": bundle.input_specs["tokens"]})
+    secs = []
+    for _ in range(3):
+        reset_launches()
+        (logits, new_cache), sec, _ = timed_call(lambda: bundle.step_fn(params, **inputs))
+        secs.append(sec)
+    launches = fa.flash_attention_bhsd.launches
+    with gathered(model):
+        plain_secs = []
+        for _ in range(3):
+            (ref, _), sec, _ = timed_call(lambda: model.decode_step(ref_cache, tokens, s - 1))
+            plain_secs.append(sec)
+    logits = logits.to_local()
+    ratio = limit_ratio(logits, ref, *TOL["bf16"])
+    cache_equal = all(torch.equal(a.to_local(), r) for a, r in
+                      zip(tree_leaves(new_cache), tree_leaves(ref_cache)))
+    row = dict(arch=cfg.name, batch=b, cache_len=s, position=s - 1,
+               cache_gb=sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9,
+               step_seconds=secs, plain_step_seconds=plain_secs,
+               dtensor_over_plain=secs[-1] / plain_secs[-1], flash_launches=launches,
+               max_abs_err=float((logits - ref).abs().max()), limit_ratio=ratio,
+               bit_equal=bool(torch.equal(logits, ref)), caches_equal=cache_equal)
+    emit("steps_decode", **row)
+    check(tuple(logits.shape) == (b, 1, cfg.vocab_size), f"decode logits {logits.shape}")
+    check(launches == 0, "the decode step launched a flash kernel")
+    check(ratio <= 1.0 and cache_equal, f"the decode step differs from LM.decode_step: {row}")
+    return row
+
+
+def plain_train_step(model, params, opt_state, batch, grad_accum: int = 1):
+    """The bundles' train step on plain tensors (the JAX builder's step):
+    ``grad_accum`` microbatches summed in a bf16 accumulator and divided,
+    AdamW at the default ``warmup_cosine``."""
+    leaves = tree_leaves(params)
+    if grad_accum == 1:
+        loss = model.loss(batch)
+        grads = torch.autograd.grad(loss, leaves)
+    else:
+        micro = batch["tokens"].shape[0] // grad_accum
+        gsum = [torch.zeros_like(p, dtype=torch.bfloat16) for p in leaves]
+        loss = 0.0
+        for i in range(grad_accum):
+            part = model.loss({k: v[i * micro:(i + 1) * micro] for k, v in batch.items()})
+            g = torch.autograd.grad(part, leaves)
+            gsum = [a + b.to(a.dtype) for a, b in zip(gsum, g)]
+            loss = loss + part.detach()
+        grads = [g / grad_accum for g in gsum]
+        loss = loss / grad_accum
+    by_param = {id(p): g for p, g in zip(leaves, grads)}
+    params, opt_state, metrics = adamw_update(
+        AdamWConfig(), params, tree_map(lambda p: by_param[id(p)], params), opt_state,
+        warmup_cosine(opt_state["step"]))
+    metrics["loss"] = loss.detach()
+    return params, opt_state, metrics
+
+
+def steps_reference(cfg, batch, grad_accum: int, n_steps: int) -> dict:
+    """``n_steps`` of :func:`plain_train_step` from the seed: the losses, and
+    m (and after more than one step the f32 master) after them, copied to
+    the host: the card does not hold two states of 45 GB."""
+    model = LM(cfg, seed=SEED, remat="full", device="cuda")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    params = param_tree(model)
+    opt_state = adamw_init(params)
+    losses, secs = [], []
+    for _ in range(n_steps):
+        (params, opt_state, metrics), sec, _ = timed_call(
+            lambda: plain_train_step(model, params, opt_state, batch, grad_accum))
+        losses.append(float(metrics["loss"]))
+        secs.append(sec)
+    kept = ("m", "master") if n_steps > 1 else ("m",)
+    out = {"losses": losses, "seconds": secs,
+           **{k: {n: t.cpu() for n, t in flatten_tree(opt_state[k]).items()} for k in kept}}
+    del model, params, opt_state
+    free()
+    return out
+
+
+def steps_errors(opt_state, ref) -> dict:
+    """Each leaf's m error over its largest |m| and, where the reference
+    kept it, its master error: the worst of each, compared on the card."""
+    def errs(key, rel):
+        out = {}
+        for n, t in flatten_tree(opt_state[key]).items():
+            want = ref[key][n].to(t.device)
+            err = (t.to_local() - want).abs().max()
+            out[n] = float(err / want.abs().max().clamp(min=1e-30) if rel else err)
+        return out
+    m = errs("m", True)
+    row = {"m_rel_worst": max(m.values()), "m_rel_worst_leaf": max(m, key=m.get)}
+    if "master" in ref:
+        master = errs("master", False)
+        row.update(master_abs_worst=max(master.values()),
+                   master_abs_worst_leaf=max(master, key=master.get))
+    return row
+
+
+def run_bundle_steps(bundle, batch, n_steps, read_launches, ref=None) -> dict:
+    """``n_steps`` of ``bundle.step_fn`` from a fresh placed state: the
+    losses, wall seconds and launches of each, the peak; with ``ref`` (of
+    :func:`steps_reference`), the state's errors against it after as many
+    steps as it ran."""
+    params, opt_state = place_state(bundle, seed=SEED)
+    inputs = place_like(batch, bundle.input_specs["batch"])
+    row = dict(losses=[], seconds=[], launches=[])
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_steps):
+        reset_launches()
+        (params, opt_state, metrics), sec, _ = timed_call(
+            lambda: bundle.step_fn(params, opt_state, inputs))
+        row["losses"].append(float(metrics["loss"].to_local()))
+        row["seconds"].append(sec)
+        row["launches"].append(read_launches())
+        if ref is not None and i + 1 == len(ref["losses"]):
+            row["errors"] = steps_errors(opt_state, ref)
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt_state
+    free()
+    return row
+
+
+def phase_steps_train(cfg_full, mesh, trainer_full_step_s: float) -> dict:
+    """``build_train_step`` of llama3_8b at 8 layers on the mesh of one:
+    ``STEPS_TRAIN_STEPS`` steps on one sequence of 4096 (remat "full": 16
+    tensor-core forward and 8 backward launches a step), finite losses;
+    the first two steps' losses, m and master held against
+    :func:`plain_train_step` from the same seed; then ``grad_accum=2`` on
+    two sequences, one step, against the plain bf16-accumulator route.
+    The step time beside the Trainer's under "full" (phase 10)."""
+    cfg = replace(cfg_full, n_layers=TRAIN_LAYERS)
+    read = lambda: dict(fa.flash_attention_bhsd.variant_launches)  # noqa: E731
+    out = {}
+    # grad_accum 1: two reference steps (the master moves first at the
+    # second, warmup's first scale being 0); grad_accum 2: one, its m
+    for shape, accum, n_steps, n_ref in ((STEPS_TRAIN, 1, STEPS_TRAIN_STEPS, 2),
+                                         (STEPS_TRAIN_ACCUM, 2, 1, 1)):
+        b, s = shape.global_batch, shape.seq_len
+        toks = seeded_tokens(cfg, b, s + 1, SEED + 24)
+        batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+        ref = steps_reference(cfg, batch, accum, n_ref)
+        bundle = build_train_step(cfg.name, shape.name, mesh, cfg=cfg, grad_accum=accum)
+        row = run_bundle_steps(bundle, batch, n_steps, read, ref)
+        row = dict(batch=b, seq=s, grad_accum=accum, policy=bundle.policy, remat=bundle.model.remat,
+                   **row, ref_losses=ref["losses"], ref_seconds=ref["seconds"],
+                   loss_rel_errs=[abs(a - r) / abs(r) for a, r in zip(row["losses"],
+                                                                      ref["losses"])])
+        out[f"grad_accum_{accum}"] = row
+        del bundle, ref
+        free()
+    main = out["grad_accum_1"]
+    step_s = statistics.median(main["seconds"][1:])
+    emit("steps_train", arch=cfg.name, layers=cfg.n_layers, median_step_s=step_s,
+         train_tokens_per_s=STEPS_TRAIN.seq_len / step_s,
+         trainer_full_step_s=trainer_full_step_s, dtensor_over_trainer=step_s / trainer_full_step_s,
+         **out)
+    for row in out.values():
+        accum = row["grad_accum"]
+        check(all(np.isfinite(row["losses"])), f"step losses are not finite: {row['losses']}")
+        fwd = 2 * cfg.n_layers * accum            # remat "full": each layer twice
+        check(all(n == flash_counts(wgmma=fwd, backward_wgmma=cfg.n_layers * accum)
+                  for n in row["launches"]), f"train step launches {row['launches']}")
+        errs = row["errors"]
+        check(max(row["loss_rel_errs"]) <= STEPS_LOSS_REL and errs["m_rel_worst"] <= STEPS_M_REL
+              and errs.get("master_abs_worst", 0.0) <= STEPS_MASTER_ATOL,
+              f"the train step (grad_accum {accum}) differs from the plain route: {row}")
+    return out
+
+
+def phase_steps_rwkv_train(cfg, mesh, trainer_full_step_s: float) -> dict:
+    """``build_train_step`` of rwkv6_1b6 at full depth on the mesh of one,
+    B=1 x S=4096: a step launches 48 chunked WKV forwards (24 recomputed
+    under remat "full") and 24 ``backward_chunked``; finite losses."""
+    b, s = STEPS_TRAIN.global_batch, STEPS_TRAIN.seq_len
+    toks = seeded_tokens(cfg, b, s + 1, SEED + 25)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    bundle = build_train_step(cfg.name, STEPS_TRAIN.name, mesh, cfg=cfg)
+    read = lambda: {**wkv.wkv_bhsd.variant_launches,  # noqa: E731
+                    "flash": fa.flash_attention_bhsd.launches}
+    row = run_bundle_steps(bundle, batch, 3, read)
+    step_s = statistics.median(row["seconds"][1:])
+    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, policy=bundle.policy,
+               remat=bundle.model.remat, **row, median_step_s=step_s,
+               train_tokens_per_s=b * s / step_s, trainer_full_step_s=trainer_full_step_s,
+               dtensor_over_trainer=step_s / trainer_full_step_s)
+    emit("steps_rwkv_train", **row)
+    n = cfg.n_layers
+    want = {**wkv_counts(chunked=2 * n, backward_chunked=n), "flash": 0}
+    check(all(np.isfinite(row["losses"])), f"RWKV step losses are not finite: {row['losses']}")
+    check(all(x == want for x in row["launches"]), f"RWKV step launches {row['launches']}")
+    return row
+
+
+def phase_jamba_train(cfg_full) -> dict:
+    """jamba_15_large at full width with ``JAMBA_TRAIN_CUT`` (layer 0: Mamba
+    and a dense FFN) through ``Trainer.step_fn`` (:func:`train_cell`):
+    the Mamba path's backward on the card, no flash launch, the falling
+    loss; then its f32 gradients through the card's route vs the torch
+    scan route (phase 9)."""
+    cfg = replace(cfg_full, **JAMBA_TRAIN_CUT)
+    row = train_cell(cfg, lambda: dict(fa.flash_attention_bhsd.variant_launches),
+                     "selective_scan")
+    emit("jamba_train", **row)
+    check_training(row)
+    check(row["launches"] == flash_counts(), f"jamba training launches {row['launches']}")
+    free()
+    phase_gradients(cfg_full, **JAMBA_TRAIN_CUT)
+    return row
+
+
+def phase_vision_train(cfg_full) -> dict:
+    """llama32_vision_90b at full width with ``VISION_TRAIN_CUT`` (a layer
+    of self-attention, then one of self- and cross-attention) over its 6404
+    frontend tokens (:func:`train_cell`): one tensor-core flash forward and
+    one backward a step for each self-attention (twice the forward under
+    "full"), none for the cross-attention (the chunked scan), the falling
+    loss; then its f32 gradients vs the scan route (phase 9)."""
+    cfg = replace(cfg_full, **VISION_TRAIN_CUT)
+    row = train_cell(cfg, lambda: dict(fa.flash_attention_bhsd.variant_launches), "flash",
+                     attn_chunk=SEAMLESS_TRAIN_ATTN_CHUNK)
+    emit("vision_train", **row)
+    check_training(row)
+    # every layer holds self-attention; the cross layer adds cross-attention
+    n = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    want = flash_counts(wgmma=n * TRAIN_STEPS, backward_wgmma=n * TRAIN_STEPS)
+    check(row["launches"] == want, f"vision training launches {row['launches']}, want {want}")
+    check(row["remat"]["full"]["launches"] == flash_counts(wgmma=2 * n, backward_wgmma=n),
+          f"remat='full' vision step launches {row['remat']['full']['launches']}")
+    free()
+    phase_gradients(cfg_full, **VISION_TRAIN_CUT)
+    return row
+
+
 def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2604,6 +2966,22 @@ def main() -> int:
     seamless_train = phase_seamless_train(seamless_cfg)
     free()
     phase_gradients(seamless_cfg, **SEAMLESS_F32_CUT)
+    free()
+
+    # the step builders on a mesh of one, then the two training cuts
+    mesh = make_local_mesh(1, 1)
+    model, steps_prefill = phase_steps_prefill(cfg, mesh)
+    steps_decode = phase_steps_decode(model, mesh)
+    del model
+    free()
+    steps_train = phase_steps_train(cfg, mesh, train["remat"]["full"]["step_s"])
+    free()
+    steps_rwkv = phase_steps_rwkv_train(rwkv_cfg, mesh, rwkv_train["remat"]["full"]["step_s"])
+    free()
+    jamba_train = phase_jamba_train(jamba_cfg)
+    free()
+    vision_train = phase_vision_train(vision_cfg)
+    free()
 
     olmoe, jamba_id, vision_id, seamless = ("olmoe_1b_7b", "jamba_15_large",
                                             "llama32_vision_90b", "seamless_m4t_v2")
@@ -2666,6 +3044,27 @@ def main() -> int:
                             trainer["rwkv_main"]["wkv_launches"]["backward"],
                             "launch.train.main --arch rwkv6_1b6 (smoke config, f32) of "
                             "phase 11")]
+    # launches of each kernel on the step builders' paths and the new
+    # training cuts, each read just after its own run
+    per_call = lambda rows: rows[-1]  # noqa: E731
+    entry = lambda name: next(k for k in kernels if k["name"] == name)  # noqa: E731
+    entry("flash_attention_bhsd[wgmma]")["launches_on_step_paths"] = {
+        "steps_prefill (llama3_8b, one call)": per_call(steps_prefill["launches_per_call"])["wgmma"],
+        "steps_train (llama3_8b 8 layers, one step, remat full)":
+            steps_train["grad_accum_1"]["launches"][-1]["wgmma"],
+        "steps_train grad_accum 2 (one step)": steps_train["grad_accum_2"]["launches"][-1]["wgmma"],
+        "steps_decode (one step)": steps_decode["flash_launches"],
+        f"vision_train ({TRAIN_STEPS} steps)": vision_train["launches"]["wgmma"]}
+    entry("flash_attention_bwd[backward_wgmma]")["launches_on_step_paths"] = {
+        "steps_train (one step)": steps_train["grad_accum_1"]["launches"][-1]["backward_wgmma"],
+        "steps_train grad_accum 2 (one step)":
+            steps_train["grad_accum_2"]["launches"][-1]["backward_wgmma"],
+        f"vision_train ({TRAIN_STEPS} steps)": vision_train["launches"]["backward_wgmma"],
+        f"jamba_train ({TRAIN_STEPS} steps)": sum(jamba_train["launches"].values())}
+    entry("wkv_bhsd[chunked]")["launches_on_step_paths"] = {
+        "steps_rwkv_train (rwkv6_1b6, one step, remat full)": steps_rwkv["launches"][-1]["chunked"]}
+    entry("wkv_bhsd_bwd[backward_chunked]")["launches_on_step_paths"] = {
+        "steps_rwkv_train (one step)": steps_rwkv["launches"][-1]["backward_chunked"]}
     emit("done", seconds=time.perf_counter() - t_start, gc_collections=len(GC_PAUSES),
          gc_full_collections=sum(g == 2 for g, _ in GC_PAUSES),
          gc_seconds=sum(p for _, p in GC_PAUSES),

@@ -7,7 +7,9 @@ package's ten architectures in its order: the dense and MoE decoders,
 RWKV6, the hybrid Mamba/attention model, the cross-attention VLM and the
 encoder-decoder.
 ``ShapeConfig`` (a batch shape: sequence length, global batch, kind) is
-copied too, for the trainer.
+copied too, with the named shapes ``SHAPES`` (a plain dict: callers may
+register shapes of their own with ``SHAPES.setdefault``) and
+``shape_by_name``.
 Each module defines ``CONFIG`` (published dims) and ``smoke_config()``
 (a reduced same-family variant for CPU tests).
 """
@@ -16,7 +18,8 @@ from __future__ import annotations
 import importlib
 from dataclasses import dataclass, replace
 
-__all__ = ["ModelConfig", "ShapeConfig", "ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCH_IDS", "get_config",
+           "get_smoke_config", "shape_by_name"]
 
 
 @dataclass(frozen=True)
@@ -177,6 +180,13 @@ class ShapeConfig:
         return self.kind == "decode"
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 ARCH_IDS = (
     "mixtral_8x7b",
     "olmoe_1b_7b",
@@ -218,3 +228,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    return SHAPES[name]

@@ -40,16 +40,24 @@ class Initializer:
     ``jax.random`` streams cannot be reproduced in torch, so the port's
     init draws its own numbers; parity with JAX comes from carrying
     weights across (:func:`repro_torch.convert.load_jax_params`).
+
+    On the ``"meta"`` device (the port's ``jax.eval_shape``) it draws
+    nothing and makes no generator: every leaf is an empty meta tensor of
+    the shape and dtype a real draw would have.
     """
 
     def __init__(self, seed: int, param_dtype=torch.bfloat16,
                  device="cuda"):
         self.device = resolve_device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(seed)
         self.param_dtype = param_dtype
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(seed)
 
     def normal(self, shape, fan_in: int | None = None, scale: float = 1.0):
+        if self.gen is None:
+            return torch.empty(shape, dtype=self.param_dtype, device=self.device)
         fan = fan_in if fan_in is not None else shape[0]
         std = scale / np.sqrt(max(fan, 1))
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
@@ -82,8 +90,11 @@ def rope_frequencies(head_dim: int, max_pos: int, theta: float,
     """[2, max_pos, head_dim//2] cos/sin table (f32).
 
     Built in numpy float64 and cast once, as the JAX package builds it,
-    so both tables hold the same f32 values.
+    so both tables hold the same f32 values.  On the ``"meta"`` device
+    it is an empty table of that shape.
     """
+    if torch.device(device).type == "meta":
+        return torch.empty((2, max_pos, head_dim // 2), device="meta")
     inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
     pos = np.arange(max_pos)
     ang = np.einsum("p,f->pf", pos, inv)

@@ -111,8 +111,13 @@ def _selective_scan_chunk(h0, dt, a, b, c, xc):
     return y, h[:, -1]
 
 
-def mamba_seq(params: dict, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    """Full-sequence Mamba block. x: [B, S, d_model] -> same shape."""
+def mamba_seq(params: dict, x: torch.Tensor, chunk: int = 256,
+              shard=None) -> torch.Tensor:
+    """Full-sequence Mamba block. x: [B, S, d_model] -> same shape.
+
+    ``shard(tensor, kind)`` is called where the JAX function pins the d_in
+    dim of the scan's inputs ("mamba_din"); the default is the identity."""
+    shard = shard or (lambda v, kind: v)
     btype = x.dtype
     bsz, s, _ = x.shape
     d_in = params["dt_bias"].shape[0]
@@ -120,6 +125,7 @@ def mamba_seq(params: dict, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
 
     xz = x @ params["in_proj"].to(btype)
     xr, z = xz.chunk(2, dim=-1)
+    xr = shard(xr, "mamba_din")
 
     # depthwise causal conv over the sequence: a sum of K products in the
     # activation dtype, in JAX's order
@@ -130,7 +136,8 @@ def mamba_seq(params: dict, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     xc = F.silu(xc + params["conv_b"].to(btype))
 
     dt, a, b, c = _ssm_params(params, xc)
-    xcf = xc.float()
+    dt = shard(dt, "mamba_din")
+    xcf = shard(xc.float(), "mamba_din")
 
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s

@@ -27,6 +27,15 @@ Python loop over the repeats.  The parameters do not require grad, so
 serving builds no graph; the trainer turns grad on for what it trains.
 On the card, attention's gradient is the flash backward kernel and the
 WKV recurrence's the WKV backward kernel.
+
+With DTensor parameters and inputs (a step of
+:mod:`repro_torch.launch.steps`) the same code runs on a device mesh.
+``shard_act(x, kind)`` is called where the JAX model calls its hook, the
+norms and the residual stream run on DTensors, and every block that
+reads weights runs in a local region (:mod:`repro_torch.models.shards`):
+attention's projections and kernel with the heads split over "model"
+where the head counts allow, every other block over the batch's shards
+with its weights gathered whole.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -44,6 +54,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
+from .shards import batch_placements, is_dtensor, on_shards, split_on_model
 from .layers import (Initializer, apply_rope, embed, resolve_device,
                      rms_norm, rope_frequencies, swiglu, unembed)
 
@@ -151,14 +162,19 @@ class LM(nn.Module):
     recomputes the rest (JAX's ``checkpoint_dots_with_no_batch_dims``).
     ``kv_dtype="int8"`` stores the attention decode cache quantized
     (per-token, per-head absmax scales); any other value keeps it in the
-    cache's dtype, as in JAX.
+    cache's dtype, as in JAX.  ``shard_act(x, kind)`` is the JAX model's
+    activation hook, called at its sites with its kinds ("attn_in",
+    "residual", "logits"; "mamba_din", "moe_tokens" and "moe_hidden"
+    inside the Mamba and MoE layers); None is the identity.
+    ``device="meta"`` builds every parameter as an empty meta tensor of
+    its shape and dtype, drawing nothing (the port's ``jax.eval_shape``).
     """
 
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.bfloat16,
                  attn_chunk: int = 512, mamba_chunk: int = 256,
                  capacity_factor: float = 1.25,
                  max_seq: int = 0, rwkv_chunk: int = 16, remat: str = "none",
-                 kv_dtype: str = "bf16", seed: int = 0,
+                 shard_act=None, kv_dtype: str = "bf16", seed: int = 0,
                  device="cuda") -> None:
         super().__init__()
         device = resolve_device(device)
@@ -172,6 +188,7 @@ class LM(nn.Module):
         self.max_seq = max_seq or 8192
         self.rwkv_chunk = rwkv_chunk
         self.remat = remat
+        self.shard_act = shard_act or (lambda x, kind="act": x)
         self.kv_dtype = kv_dtype
 
         p = _lcm(
@@ -309,63 +326,129 @@ class LM(nn.Module):
 
     def _self_attn(self, p, x, cos_sin, positions, causal=True):
         cfg = self.cfg
-        b, s, _ = x.shape
         h = rms_norm(x, p["norm"], cfg.norm_eps)
-        q, k, v = self._qkv(p, h)
-        q = apply_rope(q, cos_sin, positions)
-        k = apply_rope(k, cos_sin, positions)
-        o = attn.gqa_attention(q, k, v, causal=causal, chunk=self.attn_chunk,
-                               sliding_window=cfg.sliding_window)
-        o = o.reshape(b, s, cfg.n_heads * cfg.hd)
-        return o @ p["wo"].to(x.dtype)
+        if x.shape[1] > 1:
+            h = self.shard_act(h, "attn_in")
+
+        def attend(q, k, v):
+            q = apply_rope(q, cos_sin, positions)
+            k = apply_rope(k, cos_sin, positions)
+            return attn.gqa_attention(q, k, v, causal=causal, chunk=self.attn_chunk,
+                                      sliding_window=cfg.sliding_window)
+        return self._out_proj(p, self._heads(p, h, h, attend))
 
     def _cross_attn(self, p, x, memory):
         """memory: [B, M, d] (frontend embeddings / encoder output), its K
         and V computed anew at every call (decode steps included), as in
         JAX."""
+        h = rms_norm(x, p["norm"], self.cfg.norm_eps)
+        return self._out_proj(p, self._heads(
+            p, h, memory,
+            lambda q, k, v: attn.cross_attention(q, k, v, chunk=self.attn_chunk)))
+
+    def _heads(self, p, h, src, fn):
+        """``fn(q, k, v)`` of [B, S, H, hd] tensors, q projected from h and k,
+        v from ``src`` (h itself for self-attention); its result flat
+        [B, S, Hq*hd].  On DTensors, a local region with the batch where h
+        holds it and the heads split over "model" where both head counts
+        divide it (the projections' columns and biases split with them);
+        elsewhere every rank holds every head, since a local q head could
+        not find its kv head."""
         cfg = self.cfg
-        b, s, _ = x.shape
-        m = memory.shape[1]
-        h = rms_norm(x, p["norm"], cfg.norm_eps)
-        q = h @ p["wq"].to(x.dtype)
-        k = memory @ p["wk"].to(x.dtype)
-        v = memory @ p["wv"].to(x.dtype)
-        o = attn.cross_attention(q.reshape(b, s, cfg.n_heads, cfg.hd),
-                                 k.reshape(b, m, cfg.n_kv_heads, cfg.hd),
-                                 v.reshape(b, m, cfg.n_kv_heads, cfg.hd),
-                                 chunk=self.attn_chunk)
-        o = o.reshape(b, s, cfg.n_heads * cfg.hd)
-        return o @ p["wo"].to(x.dtype)
+        names = [n for n in ("wq", "wk", "wv", "bq", "bk", "bv") if n in p]
+
+        def local(h, src, *weights):
+            w = dict(zip(names, weights))
+            q = h @ w["wq"].to(h.dtype)
+            k = src @ w["wk"].to(h.dtype)
+            v = src @ w["wv"].to(h.dtype)
+            if "bq" in w:
+                q = q + w["bq"].to(h.dtype)
+                k = k + w["bk"].to(h.dtype)
+                v = v + w["bv"].to(h.dtype)
+            heads = (t.unflatten(-1, (-1, cfg.hd)) for t in (q, k, v))
+            return fn(*heads).flatten(2)
+        if not is_dtensor(h):
+            return local(h, src, *(p[n] for n in names))
+        pl = batch_placements(h)
+        out = split_on_model(pl, h, 2, cfg.n_heads, cfg.n_kv_heads)
+        cols = [Shard(1) if q == Shard(2) else Replicate() for q in out]
+        bias = [Shard(0) if q == Shard(2) else Replicate() for q in out]
+        return on_shards(local, [(h, pl), (src, pl)] + [
+            (p[n], cols if n.startswith("w") else bias) for n in names], out)
+
+    def _out_proj(self, p, o):
+        return self._per_batch(lambda o, w: o @ w["wo"].to(o.dtype), o, {"wo": p["wo"]})
+
+    def _per_batch(self, fn, x, weights: dict, *others, outputs=None):
+        """``fn(x, weights, *others)``; on DTensors, in a local region over
+        x's batch shards (``others`` split as x is), the rest of every
+        input whole on every rank and every weight gathered whole.  The
+        result is split as x is; where ``fn`` returns a tuple, ``outputs``
+        names each entry "batch" (so split) or "share" (each rank's share
+        of a sum over the batch: ``Partial`` where the batch is split)."""
+        if not is_dtensor(x):
+            return fn(x, weights, *others)
+        names = list(weights)
+        pl = batch_placements(x)
+        whole = [Replicate()] * len(pl)
+        share = [Partial() if q == Shard(0) else Replicate() for q in pl]
+
+        def local(x, *rest):
+            return fn(x, dict(zip(names, rest)), *rest[len(names):])
+        kinds = {"batch": pl, "share": share}
+        out = pl if outputs is None else tuple(kinds[k] for k in outputs)
+        return on_shards(local, [(x, pl)] + [(weights[n], whole) for n in names]
+                         + [(o, pl) for o in others], out)
 
     def _ffn(self, p, spec, x):
         """(FFN output, MoE aux loss: 0.0 for a dense FFN)."""
         cfg = self.cfg
         h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
         if spec.moe:
-            return moe_mod.moe_ffn(p["moe"], h, top_k=cfg.experts_per_token,
-                                   capacity_factor=self.capacity_factor)
-        f = p["ffn"]
-        return swiglu(h, f["w_gate"].to(x.dtype), f["w_up"].to(x.dtype),
-                      f["w_down"].to(x.dtype)), 0.0
+            return self._moe(p["moe"], h)
+        return self._per_batch(lambda h, f: swiglu(h, f["w_gate"].to(h.dtype),
+                                                   f["w_up"].to(h.dtype),
+                                                   f["w_down"].to(h.dtype)),
+                               h, p["ffn"]), 0.0
+
+    def _moe(self, p, h):
+        """The MoE layer, over the batch's shards (its groups) on DTensors,
+        every expert on every rank: the routing's sorts and gathers stay
+        local.  The aux loss, a mean over the groups, comes back as each
+        rank's share of it (its local mean weighted by its groups)."""
+        groups = h.shape[0]
+
+        def run(h, w):
+            y, aux = moe_mod.moe_ffn(w, h, top_k=self.cfg.experts_per_token,
+                                     capacity_factor=self.capacity_factor,
+                                     shard=self.shard_act)
+            return y, aux * (h.shape[0] / groups)
+        return self._per_batch(run, h, p, outputs=("batch", "share"))
 
     def _layer_seq(self, p, spec, x, memory, cos_sin, positions):
         """Full-sequence layer (prefill): (x, aux).  The JAX layer also
         returns its k/v, which prefill drops; so does this one.  A cross
         layer given no memory skips its cross-attention, as in JAX."""
         cfg = self.cfg
+        shard = self.shard_act
+        mixer = {k: v for k, v in p["mixer"].items() if k != "norm"}
         if spec.kind == "attn":
-            x = x + self._self_attn(p["mixer"], x, cos_sin, positions)
+            # the partial sums pinned to the residual's placement before
+            # the add, as JAX pins them
+            x = x + shard(self._self_attn(p["mixer"], x, cos_sin, positions), "residual")
         elif spec.kind == "mamba":
             h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
-            x = x + ssm_mod.mamba_seq(p["mixer"], h, chunk=self.mamba_chunk)
+            x = x + self._per_batch(lambda h, w: ssm_mod.mamba_seq(
+                w, h, chunk=self.mamba_chunk, shard=shard), h, mixer)
         else:  # rwkv
             h = rms_norm(x, p["mixer"]["norm"], cfg.norm_eps)
-            x = x + rwkv_mod.rwkv_seq(p["mixer"], h, cfg.n_heads, cfg.hd,
-                                      cfg.norm_eps, chunk=self.rwkv_chunk)
+            x = x + self._per_batch(lambda h, w: rwkv_mod.rwkv_seq(
+                w, h, cfg.n_heads, cfg.hd, cfg.norm_eps, chunk=self.rwkv_chunk), h, mixer)
         if spec.cross and memory is not None:
-            x = x + self._cross_attn(p["cross"], x, memory)
+            x = x + shard(self._cross_attn(p["cross"], x, memory), "residual")
         y, aux = self._ffn(p, spec, x)
-        return x + y, aux
+        return x + shard(y, "residual"), aux
 
     # ------------------------------------------------------------------ #
     # forward (prefill logits)
@@ -380,7 +463,9 @@ class LM(nn.Module):
             return None
         mem = frontend.to(dtype)
         proj = getattr(self, "frontend_proj", None)
-        return mem if proj is None else mem @ proj.to(dtype)
+        if proj is None:
+            return mem
+        return self._per_batch(lambda m, w: m @ w["proj"].to(dtype), mem, {"proj": proj})
 
     def _encode(self, memory):
         """Encoder stack over frontend embeddings (enc-dec archs): each
@@ -401,8 +486,9 @@ class LM(nn.Module):
 
     def _enc_layer(self, r, x, cos_sin, positions):
         lp = self.encoder.rep(r)
-        x = x + self._self_attn(lp["mixer"], x, cos_sin, positions, causal=False)
-        return x + self._ffn(lp, _ENC_SPEC, x)[0]
+        x = x + self.shard_act(self._self_attn(lp["mixer"], x, cos_sin, positions,
+                                               causal=False), "residual")
+        return self.shard_act(x + self._ffn(lp, _ENC_SPEC, x)[0], "residual")
 
     def hidden_states(self, tokens: torch.Tensor, frontend=None):
         """(final-norm hidden states [B, S, d], MoE aux loss summed over
@@ -410,7 +496,8 @@ class LM(nn.Module):
         frontend_dim]: the stub embeddings that cross layers attend to
         (through the encoder in enc-dec archs); without it they skip
         their cross-attention."""
-        x = embed(self.embed, tokens).to(self.param_dtype)
+        x = self._per_batch(lambda t, w: embed(w["embed"], t), tokens,
+                            {"embed": self.embed}).to(self.param_dtype)
         memory = self._frontend_memory(frontend, x.dtype)
         if self.cfg.is_encdec and memory is not None:
             memory = self._encode(memory)
@@ -429,6 +516,7 @@ class LM(nn.Module):
                 else:
                     x, aux = checkpoint(self._rep_layer, block, r, spec, x, memory,
                                         cos_sin, positions, use_reentrant=False, **remat)
+                x = self.shard_act(x, "residual")
                 aux_total = aux_total + aux
         return rms_norm(x, self.final_norm, self.cfg.norm_eps), aux_total
 
@@ -445,9 +533,10 @@ class LM(nn.Module):
         serving prefill only needs the final position.
         """
         x, _ = self.hidden_states(tokens, frontend)
-        if last_only:
-            x = x[:, -1:]
-        return unembed(x, self._table())
+
+        def head(x, w):
+            return unembed(x[:, -1:] if last_only else x, w["table"])
+        return self.shard_act(self._per_batch(head, x, {"table": self._table()}), "logits")
 
     # ------------------------------------------------------------------ #
     # training loss
@@ -469,27 +558,35 @@ class LM(nn.Module):
         """
         x, aux = self.hidden_states(batch["tokens"], batch.get("frontend"))
         labels = batch["labels"]
-        table = self._table()
-        b, s, _ = x.shape
-        chunk = min(vocab_chunk, s)
-        n_chunks = s // chunk if s % chunk == 0 else 1
-        if s % chunk != 0:
-            chunk = s
         mask = batch.get("mask")
-        mask = (torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+        mask = (torch.ones_like(labels, dtype=torch.float32)
                 if mask is None else mask.to(torch.float32))
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
-        denom = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c in range(n_chunks):
-            part = slice(c * chunk, (c + 1) * chunk)
-            total = total + checkpoint(self._chunk_nll, x[:, part], labels[:, part],
-                                       mask[:, part], table, use_reentrant=False)
-            denom = denom + mask[:, part].sum()
+        total, denom = self._nll_sums(x, labels, mask, vocab_chunk)
         return total / torch.clamp(denom, min=1.0) + 0.01 * aux
+
+    def _nll_sums(self, x, labels, mask, vocab_chunk: int):
+        """(masked NLL sum, mask sum) in f32; on DTensors, each rank's
+        share of them, over its batch shard, with the table gathered."""
+        def sums(x, w, labels, mask):
+            b, s, _ = x.shape
+            chunk = min(vocab_chunk, s)
+            n_chunks = s // chunk if s % chunk == 0 else 1
+            if s % chunk != 0:
+                chunk = s
+            total = torch.zeros((), dtype=torch.float32, device=x.device)
+            denom = torch.zeros((), dtype=torch.float32, device=x.device)
+            for c in range(n_chunks):
+                part = slice(c * chunk, (c + 1) * chunk)
+                total = total + checkpoint(self._chunk_nll, x[:, part], labels[:, part],
+                                           mask[:, part], w["table"], use_reentrant=False)
+                denom = denom + mask[:, part].sum()
+            return total, denom
+        return self._per_batch(sums, x, {"table": self._table()}, labels, mask,
+                               outputs=("share", "share"))
 
     def _chunk_nll(self, x, labels, mask, table) -> torch.Tensor:
         """Masked sum of one chunk's next-token NLL (f32)."""
-        logits = unembed(x, table)                              # [B, c, V] f32
+        logits = self.shard_act(unembed(x, table), "logits")    # [B, c, V] f32
         lse = torch.logsumexp(logits, dim=-1)
         vocab = torch.arange(logits.shape[-1], device=logits.device)
         onehot = (labels[..., None] == vocab).to(self.param_dtype)

@@ -20,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.convert import tree_leaves, tree_map
 
@@ -44,12 +45,17 @@ class AdamWConfig:
 
 def adamw_init(params, moment_dtype: str = "float32") -> dict:
     """Zero moments in ``moment_dtype`` and an f32 master copy of params
-    (an explicit copy: an f32 param is not aliased)."""
+    (an explicit copy: an f32 param is not aliased).  DTensor params give
+    moments and master of their placements and a replicated ``step``."""
     mdt = _DTYPES[moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=mdt, requires_grad=False)  # noqa: E731
     leaf = next(iter(tree_leaves(params)))
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    if isinstance(leaf, DTensor):
+        mesh = leaf.device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim, run_check=False)
     return {
-        "step": torch.zeros((), dtype=torch.int32, device=leaf.device),
+        "step": step,
         "m": tree_map(zeros, params),
         "v": tree_map(zeros, params),
         "master": tree_map(
@@ -59,7 +65,8 @@ def adamw_init(params, moment_dtype: str = "float32") -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the f32 sum of squares of every leaf, leaves summed in JAX's
-    leaf order (sorted dict keys)."""
+    leaf order (sorted dict keys).  Over DTensor leaves the sums are
+    partial on each rank and the norm is reduced over every shard."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tree_leaves(tree)))
 

@@ -47,11 +47,13 @@ class Trainer:
     The model's parameters are drawn from ``tcfg.seed`` (f32 unless
     ``param_dtype`` says otherwise) and require grad; ``remat`` is
     "none", as in the JAX trainer (set ``trainer.model.remat`` to
-    "full" or "dots" to recompute layers instead).
+    "full" or "dots" to recompute layers instead).  ``mesh`` is accepted
+    and unused, as in the JAX trainer: a sharded step is
+    :func:`repro_torch.launch.steps.build_train_step`'s.
     """
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
-                 tcfg: TrainerConfig, *, param_dtype=None, attn_chunk: int = 64,
+                 tcfg: TrainerConfig, *, mesh=None, param_dtype=None, attn_chunk: int = 64,
                  injector: FailureInjector | None = None, device="cuda") -> None:
         self.cfg = cfg
         self.shape = shape

@@ -36,7 +36,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.launch.train", "repro_torch.models.ssm",
                  "repro_torch.configs.jamba_15_large",
                  "repro_torch.configs.llama32_vision_90b",
-                 "repro_torch.configs.seamless_m4t_v2"):
+                 "repro_torch.configs.seamless_m4t_v2", "repro_torch.launch",
+                 "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                 "repro_torch.launch.steps", "repro_torch.models.shards"):
         assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys
