@@ -58,7 +58,7 @@ a non-zero exit if it fails:
                call and one decode step; full llama3_8b decode over 64
                steps through the int8 KV cache and the bf16 one (kv_int8:
                within 5 % of the bf16 logits, the cache int8, bytes and
-               step times of both); then ``serve.main(["--production",
+               step times of both); then ``serve.main(["--full-size",
                ...])`` end to end — llama's main path, whose flash launches
                are counted
 7. rwkv        full rwkv6_1b6 (24 layers, bf16, seeded random weights):
@@ -66,7 +66,7 @@ a non-zero exit if it fails:
                call; full width, 4 layers, f32: prefill logits vs decode
                logits, both through the sequential kernel; a profiler window
                over one prefill call and one decode step;
-               ``serve.main(["--arch", "rwkv6_1b6", "--production", ...])``
+               ``serve.main(["--arch", "rwkv6_1b6", "--full-size", ...])``
                — RWKV's main path, whose WKV launches are counted by kernel
 8. backward    both flash backward kernels (through ``flash_attention_bhsd``'s
                autograd Function) vs autograd of the plain version: dQ, dK
@@ -138,7 +138,7 @@ a non-zero exit if it fails:
                top kernels, device time under the MoE's ops: the expert
                products' ``aten::bmm``) and one 4-slot decode step;
                ``ServeLoop(slots=4)`` answering 8 requests; then
-               ``serve.main(["--arch", "olmoe_1b_7b", "--production", ...])``
+               ``serve.main(["--arch", "olmoe_1b_7b", "--full-size", ...])``
                — olmoe's serving path, whose flash launches are counted
 13. olmoe_train olmoe_1b_7b at full width, 6 of 16 layers (2.72 B parameters),
                the step of phase 10: 6 ``wgmma`` and 6 ``backward_wgmma``
@@ -165,7 +165,7 @@ a non-zero exit if it fails:
                tokens its 2 MoE layers drop; a profiler window with the device
                time under the scan's named range (``mamba_selective_scan``);
                a teacher-forced ``greedy_decode`` through ``mamba_step``;
-               ``serve.main --production`` of the whole config must refuse its
+               ``serve.main --full-size`` of the whole config must refuse its
                799 GB before allocating; then f32 at 2 layers (period 2: mamba,
                attn+MoE; 11.9 B parameters): prefill vs decode logits at
                capacity factor 16, as phase 5
@@ -182,7 +182,7 @@ a non-zero exit if it fails:
                (24 non-causal launches), ``prefill`` (24 non-causal and 24
                causal launches per call), teacher-forced ``greedy_decode``
                (one encoding), then ``serve.main(["--arch",
-               "seamless_m4t_v2", "--production", ...])`` — its main path,
+               "seamless_m4t_v2", "--full-size", ...])`` — its main path,
                whose launches (by mask) are counted
 19. seamless_train  seamless_m4t_v2 whole, the step of phase 10 at B=1 x
                S=4096 over 4096 frames: 24 non-causal and 24 causal
@@ -218,12 +218,31 @@ a non-zero exit if it fails:
                parameters; the 2-layer cut ran out of memory in AdamW) over
                6404 frontend tokens, as phase 24: one flash forward and one
                backward a step (the cross-attention launches none)
-26. kernels    the card's nvidia-smi line again, one JSON line listing every
+26. dryrun_steps  the dry run (``launch/dryrun.run_cell``) of the step cells
+               of phases 20-22 on a meta mesh of one: its predicted peak
+               over each step's measured peak (``torch.cuda.max_memory_allocated``
+               reset just before the step, less what was allocated then
+               beyond the step's inputs) within [0.75, 1.33], its predicted
+               flash and WKV launches equal to the measured ones (prefill
+               32; train 16 + 8; decode none); its FLOPs over the measured
+               step time (achieved TFLOP/s) and the measured roofline
+               fraction beside the predicted one
+27. production_dryrun  ``launch.train --arch llama3_8b --production`` and
+               ``launch.serve --arch llama3_8b --production`` (the 16 x 16
+               dry runs over a fake group of 256 ranks), each in a process
+               of its own, at once: both exit 0 with an "ok" cell; its
+               per-rank GiB, dominant term, useful FLOP fraction, wall time
+28. pipeline   ``runtime/pipeline.pipeline_apply`` with one stage on the
+               NCCL mesh of one: llama3_8b's 8 blocks, bf16, on 4 x 4096
+               hidden states in 4 microbatches, within phase 2's bf16 bar
+               of the same blocks on the whole batch; 32 flash launches
+29. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel (the flash forward also at olmoe_1b_7b's,
                jamba_15_large's, llama32_vision_90b's and seamless_m4t_v2's
                shapes and the tensor-core backward at olmoe_1b_7b's and
                seamless_m4t_v2's, with their launches on those paths; the
-               launches of phases 20-25 under ``launches_on_step_paths``),
+               launches of phases 20-25 and 28 under
+               ``launches_on_step_paths``, and the dry runs' predicted ones),
                and the final ``{"ok": true, "device": ...}``.
 
 Prefill calls and profile windows are timed after a full garbage
@@ -236,6 +255,7 @@ import contextlib
 import gc
 import importlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -249,16 +269,19 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Shard
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import SHAPES, ShapeConfig, get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import flatten_tree, param_tree, tree_leaves, tree_map  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, cost  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch import (build_prefill_step, build_serve_step,  # noqa: E402
                                 build_train_step, make_local_mesh)
+from repro_torch.launch import dryrun, op_analysis  # noqa: E402
 from repro_torch.launch.steps import gathered, place_like, place_state  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
@@ -268,7 +291,8 @@ from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.rwkv import wkv_chunked  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine  # noqa: E402
 from repro_torch.runtime import (FailureInjector, Request, ServeLoop, Trainer,  # noqa: E402
-                                 TrainerConfig, run_with_restarts)
+                                 TrainerConfig, pipeline_apply, run_with_restarts,
+                                 stack_stage_params)
 
 # the modules; the package's ``flash_attention`` and ``rwkv_wkv`` are the
 # layout wrappers
@@ -277,8 +301,8 @@ wkv = importlib.import_module("repro_torch.kernels.rwkv_wkv")
 KERNEL_SOURCES = _build.SOURCES
 SEED = 0
 # H100 SXM data sheet, dense: bf16 tensor cores, f32 on the CUDA cores, HBM3
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
-PEAK_BYTES = 3.35e12
+# (the package's one copy, which the dry run reads too)
+PEAK_FLOPS, PEAK_BYTES = cost.PEAK_FLOPS, cost.PEAK_BYTES
 # the llama3_8b prefill layer: B=1, S=4096, Hq=32, Hkv=8, hd=128, causal
 MAIN_SHAPE = (1, 4096, 32, 8, 128)
 # the olmoe_1b_7b layer at the same length: MHA, 16 heads of 128
@@ -472,6 +496,15 @@ STEPS_MASTER_ATOL = 2 * 3e-4 * 0.01
 # GB; PERF.md §4)
 JAMBA_TRAIN_CUT = dict(n_layers=1)
 VISION_TRAIN_CUT = dict(n_layers=1, cross_attn_period=1)
+# The dry run held against the step cells of phases 20-22 (phase 26): its
+# predicted peak over the step's measured peak must lie in this range
+DRYRUN_PEAK_RATIO = (0.75, 1.33)
+# both --production dry runs (phase 27) run at once, each within this time
+PRODUCTION_DRYRUN_TIMEOUT_S = 600
+# the one-stage GPipe run (phase 28): llama3_8b's TRAIN_LAYERS blocks on
+# batch x length hidden states in as many microbatches as rows
+PIPELINE_BATCH = (4, 4096)
+PIPELINE_MICROBATCHES = 4
 
 
 # Python's collector pauses in this process, (generation, seconds) each: a
@@ -502,6 +535,25 @@ def timed_call(fn):
     return out, secs, sum(p for _, p in GC_PAUSES[n:])
 
 
+@contextlib.contextmanager
+def step_memory(inputs, row: dict):
+    """The card's memory around one step, into ``row``: its raw peak
+    (``torch.cuda.max_memory_allocated``, reset just before the step),
+    what was allocated before it, the bytes of the step's inputs (their
+    distinct storages) and ``step_peak_bytes``, the peak with only the
+    inputs alive before the step: what the dry run predicts."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    yield
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = op_analysis.argument_bytes(inputs)
+    row.update(peak_bytes=peak, allocated_before_bytes=before, input_bytes=nbytes,
+               step_peak_bytes=peak - before + nbytes)
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -525,18 +577,10 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_flops(bh, s, hd, causal) -> int:
-    """The algorithm's operations: two products over the unmasked score pairs."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    return 4 * hd * pairs * bh
-
-
-def attention_bound_ms(bh, bh_kv, s, hd, causal, dtype, elem_bytes) -> tuple[float, str]:
-    """Least time for the work: the unmasked score pairs' two products over
-    the peak rate, or q/k/v read once and o written once over HBM."""
-    t_ops = attention_flops(bh, s, hd, causal) / PEAK_FLOPS[dtype]
-    t_bytes = (2 * bh + 2 * bh_kv) * s * hd * elem_bytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+# the bound column's formulas (kernels/cost.py)
+attention_flops, attention_bound_ms = cost.attention_flops, cost.attention_bound_ms
+bwd_flops, bwd_bound_ms = cost.bwd_flops, cost.bwd_bound_ms
+wkv_bound_ms, wkv_bwd_bound = cost.wkv_bound_ms, cost.wkv_bwd_bound
 
 
 def phase_env() -> str:
@@ -791,17 +835,7 @@ def planted_wkv_fault(r, k, v, w, u, s0):
 
 def wkv_bytes_ms(b, h, s, hd, io_bytes, w_bytes) -> float:
     """r/k/v/w/u/s0 read once and out/sT written once over HBM (ms)."""
-    return (b * h * s * hd * (4 * io_bytes + w_bytes) + h * hd * io_bytes
-            + 2 * b * h * hd * hd * 4) / PEAK_BYTES * 1e3
-
-
-def wkv_bound_ms(b, h, s, hd, io_bytes, w_bytes) -> tuple[float, str]:
-    """Least time for the work: 5 hd^2 f32 operations per (b, h, t) on the
-    CUDA cores (r.S is hd^2 FMAs; the update one multiply and one FMA per
-    element), or the bytes of :func:`wkv_bytes_ms`."""
-    t_ops = 5 * hd * hd * b * h * s / PEAK_FLOPS["f32"] * 1e3
-    t_bytes = wkv_bytes_ms(b, h, s, hd, io_bytes, w_bytes)
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return cost.wkv_bytes(b, h, s, hd, io_bytes, w_bytes) / PEAK_BYTES * 1e3
 
 
 def wkv_tensor_flops(b, h, s, hd) -> int:
@@ -1042,19 +1076,6 @@ def wkv_grads(fn, args, dout, dsT) -> dict:
         heads.append(sT)
         grads_in.append(dsT)
     return dict(zip(WKV_GRADS, torch.autograd.grad(heads, leaves, grads_in)))
-
-
-def wkv_bwd_bound(b, h, s, hd, io_bytes, w_bytes) -> tuple[float, str, int, int]:
-    """(bound ms, what bounds it, operations, bytes) of the WKV gradient:
-    12 hd^2 f32 operations per (b, h, t) -- the S and G recurrences (an
-    FMA per entry each) and four hd-long dots a row (dr, dk, dv, dw) -- at
-    67 TFLOP/s, or r/k/v/dout and w read once and dr/dk/dv and dw written
-    once (plus u, s0, du, ds0) at 3.35 TB/s."""
-    ops = 12 * hd * hd * b * h * s
-    nbytes = (b * h * s * hd * (7 * io_bytes + 2 * w_bytes) + 2 * h * hd * 4
-              + 2 * b * h * hd * hd * 4)
-    t_ops, t_bytes = ops / PEAK_FLOPS["f32"] * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", ops, nbytes
 
 
 def phase_wkv_backward() -> tuple[dict, list]:
@@ -1632,10 +1653,10 @@ def flash_counts(**launches) -> dict:
 
 
 def phase_main_path(arch: str = "llama3_8b", masks=None) -> int:
-    """``serve.main --production``: prefill then greedy decode on the card;
+    """``serve.main --full-size``: prefill then greedy decode on the card;
     one tensor-core flash launch per layer (the prefill's), or by mask as
     ``masks`` says."""
-    argv = ["--arch", arch, "--production", "--batch", str(MAIN_PATH[0]),
+    argv = ["--arch", arch, "--full-size", "--batch", str(MAIN_PATH[0]),
             "--prompt-len", str(MAIN_PATH[1]), "--tokens", "16"]
     reset_launches()
     t0 = time.perf_counter()
@@ -1732,12 +1753,12 @@ def phase_rwkv_profile(model) -> None:
 
 
 def phase_rwkv_main_path() -> dict:
-    """``serve.main --arch rwkv6_1b6 --production``: one chunked WKV
+    """``serve.main --arch rwkv6_1b6 --full-size``: one chunked WKV
     launch per layer for the prefill, and one sequential launch per layer
     for each of the prompt's teacher-forced decode steps and each new
     token."""
     batch, plen, new = RWKV_MAIN_PATH
-    argv = ["--arch", "rwkv6_1b6", "--production", "--batch", str(batch),
+    argv = ["--arch", "rwkv6_1b6", "--full-size", "--batch", str(batch),
             "--prompt-len", str(plen), "--tokens", str(new)]
     reset_launches()
     t0 = time.perf_counter()
@@ -1753,21 +1774,6 @@ def phase_rwkv_main_path() -> dict:
           f"WKV launches on the RWKV main path {launches}, want {want}")
     check(fa.flash_attention_bhsd.launches == 0, "the RWKV path launched flash attention")
     return launches
-
-
-def bwd_flops(bh, s, hd, causal) -> int:
-    """The backward's operations: five products (scores, dP, dV, dK, dQ)
-    over the unmasked score pairs, 2.5x the forward's two."""
-    return attention_flops(bh, s, hd, causal) * 5 // 2
-
-
-def bwd_bound_ms(bh, bh_kv, s, hd, causal, dtype, elem_bytes) -> tuple[float, str]:
-    """Least time for the backward's work: its operations over the peak
-    rate of the input type, or q/k/v/dO and the f32 lse read once and
-    dq/dk/dv written once over HBM."""
-    t_ops = bwd_flops(bh, s, hd, causal) / PEAK_FLOPS[dtype]
-    t_bytes = ((3 * bh + 4 * bh_kv) * s * hd * elem_bytes + 4 * bh * s) / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def attention_grads(fn, q, k, v, do, causal):
@@ -2363,18 +2369,18 @@ def greedy_row(model, tokens, frontend=None, **counted) -> dict:
                 sample=out[0].tolist())
 
 
-def production_refusal(arch: str) -> dict:
-    """``serve.main --production`` of a config whose bf16 weights exceed
+def full_size_refusal(arch: str) -> dict:
+    """``serve.main --full-size`` of a config whose bf16 weights exceed
     the card must raise ``ValueError`` before it allocates anything."""
     before = torch.cuda.memory_allocated()
     try:
-        serve.main(["--arch", arch, "--production"])
+        serve.main(["--arch", arch, "--full-size"])
     except ValueError as err:
         refused = str(err)
     else:
         refused = None
     check(refused is not None and "bytes" in refused,
-          f"serve.main --arch {arch} --production did not refuse: {refused}")
+          f"serve.main --arch {arch} --full-size did not refuse: {refused}")
     check(torch.cuda.memory_allocated() == before, "the refused serve.main allocated memory")
     return dict(arch=arch, refused=refused)
 
@@ -2438,7 +2444,7 @@ def phase_jamba(cfg_full) -> dict:
                decode=decode)
     del model
     free()
-    row["whole_config"] = production_refusal("jamba_15_large")
+    row["whole_config"] = full_size_refusal("jamba_15_large")
     emit("jamba", **row)
     return row
 
@@ -2471,7 +2477,7 @@ def phase_vision(cfg_full) -> dict:
                cross_layers=n_cross, decode=decode, kv_int8_rel_gap=kv["rel_gap"])
     del model, frontend
     free()
-    row["whole_config"] = production_refusal("llama32_vision_90b")
+    row["whole_config"] = full_size_refusal("llama32_vision_90b")
     emit("vision", **row)
     return row
 
@@ -2555,10 +2561,12 @@ def phase_steps_prefill(cfg, mesh) -> tuple:
     bundle = build_prefill_step(cfg.name, STEPS_PREFILL.name, mesh, cfg=cfg)
     params, _ = place_state(bundle, model)
     inputs = place_like({"tokens": tokens}, {"tokens": bundle.input_specs["tokens"]})
-    secs, launches = [], []
+    secs, launches, memory = [], [], {}
     for _ in range(2):
         reset_launches()
-        logits, sec, _ = timed_call(lambda: bundle.step_fn(params, **inputs))
+        logits = None
+        with step_memory((params, inputs), memory):
+            logits, sec, _ = timed_call(lambda: bundle.step_fn(params, **inputs))
         secs.append(sec)
         launches.append(dict(fa.flash_attention_bhsd.variant_launches))
     logits = logits.to_local()
@@ -2570,7 +2578,7 @@ def phase_steps_prefill(cfg, mesh) -> tuple:
                plain_seconds=plain_secs, plain_tokens_per_s=b * s / plain_secs[-1],
                dtensor_over_plain=secs[-1] / plain_secs[-1],
                max_abs_err=float((logits - plain).abs().max()), limit_ratio=ratio,
-               bit_equal=bool(torch.equal(logits, plain)), tol=TOL["bf16"])
+               bit_equal=bool(torch.equal(logits, plain)), tol=TOL["bf16"], memory=memory)
     emit("steps_prefill", **row)
     check(tuple(logits.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           "step logits are not finite [B, V]")
@@ -2599,10 +2607,12 @@ def phase_steps_decode(model, mesh) -> dict:
     inputs = place_like({"cache": cache, "tokens": tokens},
                         {"cache": bundle.input_specs["cache"],
                          "tokens": bundle.input_specs["tokens"]})
-    secs = []
+    secs, memory = [], {}
     for _ in range(3):
         reset_launches()
-        (logits, new_cache), sec, _ = timed_call(lambda: bundle.step_fn(params, **inputs))
+        logits = new_cache = None
+        with step_memory((params, inputs), memory):
+            (logits, new_cache), sec, _ = timed_call(lambda: bundle.step_fn(params, **inputs))
         secs.append(sec)
     launches = fa.flash_attention_bhsd.launches
     with gathered(model):
@@ -2619,7 +2629,8 @@ def phase_steps_decode(model, mesh) -> dict:
                step_seconds=secs, plain_step_seconds=plain_secs,
                dtensor_over_plain=secs[-1] / plain_secs[-1], flash_launches=launches,
                max_abs_err=float((logits - ref).abs().max()), limit_ratio=ratio,
-               bit_equal=bool(torch.equal(logits, ref)), caches_equal=cache_equal)
+               bit_equal=bool(torch.equal(logits, ref)), caches_equal=cache_equal,
+               memory=memory)
     emit("steps_decode", **row)
     check(tuple(logits.shape) == (b, 1, cfg.vocab_size), f"decode logits {logits.shape}")
     check(launches == 0, "the decode step launched a flash kernel")
@@ -2698,17 +2709,19 @@ def steps_errors(opt_state, ref) -> dict:
 
 def run_bundle_steps(bundle, batch, n_steps, read_launches, ref=None) -> dict:
     """``n_steps`` of ``bundle.step_fn`` from a fresh placed state: the
-    losses, wall seconds and launches of each, the peak; with ``ref`` (of
+    losses, wall seconds and launches of each, the first step's memory
+    (:func:`step_memory`) and the peak from then on; with ``ref`` (of
     :func:`steps_reference`), the state's errors against it after as many
     steps as it ran."""
     params, opt_state = place_state(bundle, seed=SEED)
     inputs = place_like(batch, bundle.input_specs["batch"])
-    row = dict(losses=[], seconds=[], launches=[])
-    torch.cuda.reset_peak_memory_stats()
+    row = dict(losses=[], seconds=[], launches=[], first_step_memory={})
     for i in range(n_steps):
         reset_launches()
-        (params, opt_state, metrics), sec, _ = timed_call(
-            lambda: bundle.step_fn(params, opt_state, inputs))
+        with (step_memory((params, opt_state, inputs), row["first_step_memory"]) if i == 0
+              else contextlib.nullcontext()):
+            (params, opt_state, metrics), sec, _ = timed_call(
+                lambda: bundle.step_fn(params, opt_state, inputs))
         row["losses"].append(float(metrics["loss"].to_local()))
         row["seconds"].append(sec)
         row["launches"].append(read_launches())
@@ -2828,6 +2841,170 @@ def phase_vision_train(cfg_full) -> dict:
           f"remat='full' vision step launches {row['remat']['full']['launches']}")
     free()
     phase_gradients(cfg_full, **VISION_TRAIN_CUT)
+    return row
+
+
+def launch_names(flash: dict) -> dict:
+    """Nonzero flash ``variant_launches`` under the kernels line's names, as
+    the dry run's ``kernel_launches`` names them."""
+    return {f"flash_attention_{'bwd' if v.startswith('backward') else 'bhsd'}[{v}]": n
+            for v, n in flash.items() if n}
+
+
+def phase_dryrun_steps(cfg_full, prefill_row, decode_row, train_rows) -> dict:
+    """The dry run (``dryrun.run_cell``) of the three llama3_8b step cells of
+    phases 20-22 on a meta mesh of one, against what those phases measured
+    on the card: the predicted peak over the step's measured peak
+    (``step_memory``) within ``DRYRUN_PEAK_RATIO``, the predicted kernel
+    launches equal to the measured ones; the predicted FLOPs over the
+    measured step time (achieved TFLOP/s) and the measured roofline
+    fraction beside the predicted one."""
+    mesh1 = make_local_mesh(1, 1, device="cpu")
+    train = train_rows["grad_accum_1"]
+    cells = {
+        "prefill": (STEPS_PREFILL, cfg_full, prefill_row["memory"],
+                    launch_names(prefill_row["launches_per_call"][-1]), prefill_row["seconds"][-1]),
+        "train": (STEPS_TRAIN, replace(cfg_full, n_layers=TRAIN_LAYERS),
+                  train["first_step_memory"], launch_names(train["launches"][0]),
+                  statistics.median(train["seconds"][1:])),
+        "decode": (STEPS_DECODE, cfg_full, decode_row["memory"],
+                   launch_names(flash_counts(wgmma=decode_row["flash_launches"])),
+                   decode_row["step_seconds"][-1]),
+    }
+    out = {}
+    for name, (shape, cfg, memory, launches, step_s) in cells.items():
+        t0 = time.perf_counter()
+        cell = dryrun.run_cell(cfg.name, shape.name, multi_pod=False, overrides={"cfg": cfg},
+                               mesh=mesh1, verbose=False)
+        row = dict(shape=shape.name, layers=cfg.n_layers, batch=shape.global_batch,
+                   seq=shape.seq_len, seconds=time.perf_counter() - t0,
+                   predicted_peak_bytes=cell["per_device_bytes"],
+                   predicted_argument_bytes=cell["argument_bytes"],
+                   measured=memory,
+                   peak_ratio=cell["per_device_bytes"] / memory["step_peak_bytes"],
+                   argument_ratio=cell["argument_bytes"] / memory["input_bytes"],
+                   predicted_launches=cell["kernel_launches"], measured_launches=launches,
+                   predicted_flops=cell["flops_per_device"],
+                   predicted_flops_by_rate=cell["flops_by_rate"],
+                   predicted_bytes=cell["bytes_per_device"], n_ops=cell["n_ops"],
+                   predicted_s={k: cell[k] for k in ("compute_s", "memory_s", "collective_s")},
+                   dominant=cell["dominant"], measured_step_s=step_s,
+                   achieved_tflops=cell["flops_per_device"] / step_s / 1e12,
+                   useful_flop_frac=cell["useful_flop_frac"],
+                   roofline_frac_predicted=cell["roofline_frac"],
+                   roofline_frac_measured=(cell["model_flops_per_device"] / PEAK_FLOPS["bf16"]
+                                           / step_s))
+        out[name] = row
+        emit("dryrun_step", cell=name, **row)
+    for name, row in out.items():
+        lo, hi = DRYRUN_PEAK_RATIO
+        check(lo <= row["peak_ratio"] <= hi,
+              f"dry run {name}: predicted peak / measured {row['peak_ratio']:.4f} "
+              f"outside [{lo}, {hi}]: {row}")
+        check(row["predicted_launches"] == row["measured_launches"],
+              f"dry run {name}: predicted launches {row['predicted_launches']} != "
+              f"measured {row['measured_launches']}")
+    return out
+
+
+def phase_production_dryrun() -> dict:
+    """Both ``--production`` flags (the full-size llama3_8b cells' dry runs
+    on the 16 x 16 production mesh over a fake group of 256 ranks), each in
+    a process of its own (this one holds an NCCL group of one), the two
+    together; each must exit 0 and write its cell."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    runs = {"train": ("repro_torch.launch.train", "train_4k"),
+            "serve": ("repro_torch.launch.serve", "decode_32k")}
+    t0 = time.time()
+    procs = {}
+    for name, (module, _) in runs.items():
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", module, "--arch", "llama3_8b", "--production"], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+    def wait(proc, start):
+        log, _ = proc.communicate(timeout=PRODUCTION_DRYRUN_TIMEOUT_S)
+        return log, time.perf_counter() - start
+
+    out = {}
+    try:
+        with ThreadPoolExecutor(len(procs)) as pool:
+            waits = {name: pool.submit(wait, *pr) for name, pr in procs.items()}
+        for name, (proc, _) in procs.items():
+            log, wall_s = waits[name].result()
+            path = dryrun.cell_path("llama3_8b", runs[name][1], False)
+            cell = (json.loads(path.read_text())
+                    if path.exists() and path.stat().st_mtime >= t0 else {})
+            out[name] = dict(rc=proc.returncode, wall_s=wall_s,
+                             cell={k: cell.get(k) for k in (
+                                 "shape", "mesh", "status", "trace_s", "per_device_gib",
+                                 "argument_gib", "fits_hbm", "dominant", "useful_flop_frac",
+                                 "roofline_frac", "kernel_launches", "collectives")},
+                             log_tail=log[-1500:])
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit("production_dryrun", **out)
+    for name, row in out.items():
+        check(row["rc"] == 0 and row["cell"]["status"] == "ok",
+              f"launch.{name} --production: rc {row['rc']}, cell {row['cell']}")
+    return out
+
+
+def phase_pipeline(cfg_full) -> dict:
+    """GPipe (``runtime/pipeline.py``) with one stage on the NCCL mesh of
+    one: llama3_8b's blocks at ``TRAIN_LAYERS`` layers, bf16, on
+    ``PIPELINE_BATCH`` hidden states (the embedded tokens) in
+    ``PIPELINE_MICROBATCHES`` microbatches, against the same blocks on the
+    whole batch, within phase 2's bf16 bar; one tensor-core flash launch a
+    layer a microbatch."""
+    cfg = replace(cfg_full, n_layers=TRAIN_LAYERS)
+    model = LM(cfg, seed=SEED, device="cuda")
+    (spec,), (block,) = model.specs, param_tree(model)["blocks"]
+    b, s = PIPELINE_BATCH
+    tokens = seeded_tokens(cfg, b, s, SEED + 26)
+    x = model.embed[tokens.long()].to(torch.bfloat16)
+    cos_sin = model._rope(s)
+    positions = torch.arange(s, device="cuda")[None, :]
+
+    def stage_fn(p, h):
+        for r in range(model.n_rep):
+            h, _ = model._layer_seq(tree_map(lambda t: t[r], p), spec, h, None, cos_sin,
+                                    positions)
+        return h
+
+    stage_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+    stacked = stack_stage_params([block])
+    stage_params = tree_map(lambda t: DTensor.from_local(t, stage_mesh, [Shard(0)],
+                                                         run_check=False), stacked)
+    with torch.no_grad():
+        reset_launches()
+        ref, ref_s, _ = timed_call(lambda: stage_fn(block, x))
+        ref_launches = dict(fa.flash_attention_bhsd.variant_launches)
+        secs = []
+        for _ in range(2):
+            reset_launches()
+            out, sec, _ = timed_call(lambda: pipeline_apply(
+                stage_fn, stage_params, x, mesh=stage_mesh,
+                microbatches=PIPELINE_MICROBATCHES))
+            secs.append(sec)
+        launches = dict(fa.flash_attention_bhsd.variant_launches)
+    ratio = limit_ratio(out, ref, *TOL["bf16"])
+    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, stages=1,
+               microbatches=PIPELINE_MICROBATCHES, seconds=secs, whole_batch_seconds=ref_s,
+               launches=launches, whole_batch_launches=ref_launches,
+               max_abs_err=float((out.float() - ref.float()).abs().max()), limit_ratio=ratio,
+               bit_equal=bool(torch.equal(out, ref)), tol=TOL["bf16"])
+    emit("pipeline", **row)
+    check(tuple(out.shape) == tuple(x.shape) and bool(torch.isfinite(out).all()),
+          f"pipeline output {tuple(out.shape)} is not finite {tuple(x.shape)}")
+    check(launches == flash_counts(wgmma=cfg.n_layers * PIPELINE_MICROBATCHES),
+          f"pipeline launches {launches}")
+    check(ratio <= 1.0, f"the one-stage pipeline differs from the whole batch: {row}")
+    del model, stacked, stage_params
     return row
 
 
@@ -2982,13 +3159,19 @@ def main() -> int:
     free()
     vision_train = phase_vision_train(vision_cfg)
     free()
+    # the dry run against phases 20-22, both --production flags, GPipe
+    dry_steps = phase_dryrun_steps(cfg, steps_prefill, steps_decode, steps_train)
+    free()
+    production = phase_production_dryrun()
+    pipeline = phase_pipeline(cfg)
+    free()
 
     olmoe, jamba_id, vision_id, seamless = ("olmoe_1b_7b", "jamba_15_large",
                                             "llama32_vision_90b", "seamless_m4t_v2")
     heads = lambda *shape: [r for r in checks if r["shape"][2:] == list(shape)]  # noqa: E731
     seamless_row = flash_row(timed[(seamless, "bf16", False)], heads(16, 16, 64), "wgmma",
                              seamless_launches,
-                             "serve.main --arch seamless_m4t_v2 --production (two encodings: "
+                             "serve.main --arch seamless_m4t_v2 --full-size (two encodings: "
                              "the prefill's and greedy_decode's; one decoder prefill)",
                              at=seamless)
     causal_row = timed[(seamless, "bf16", True)]
@@ -2996,12 +3179,12 @@ def main() -> int:
     seamless_row.update({f"causal_{key}": causal_row[key] for key in (
         "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share")})
     kernels = [flash_row(timed[("llama3_8b", "bf16", True)], checks, "wgmma", launches,
-                         "every llama3_8b prefill (serve.main --production)"),
+                         "every llama3_8b prefill (serve.main --full-size)"),
                flash_row(timed[("llama3_8b", "f32", True)], checks, "cuda_core",
                          cuda_core_launches, "the 4-layer f32 prefill of phase 5"),
                flash_row(timed[(olmoe, "bf16", True)], heads(16, 16, 128), "wgmma",
                          olmoe_launches,
-                         "every olmoe_1b_7b prefill (serve.main --arch olmoe_1b_7b --production)",
+                         "every olmoe_1b_7b prefill (serve.main --arch olmoe_1b_7b --full-size)",
                          at=olmoe),
                flash_row(timed[(jamba_id, "bf16", True)], heads(64, 8, 128), "wgmma",
                          jamba["prefill"]["launches_per_call"][-1]["wgmma"],
@@ -3014,10 +3197,10 @@ def main() -> int:
                seamless_row]
     main_decode = (RWKV_MAIN_PATH[0], 1, *WKV_MAIN[2:])
     kernels += [wkv_row(wkv_timed["bf16"], wkv_checks, "chunked", wkv_launches["chunked"],
-                        "every rwkv6_1b6 bf16 prefill (serve.main --production)"),
+                        "every rwkv6_1b6 bf16 prefill (serve.main --full-size)"),
                 wkv_row(wkv_timed[("decode", main_decode[0])], wkv_checks, "sequential",
                         wkv_launches["sequential"],
-                        "every rwkv6_1b6 decode step (serve.main --production)",
+                        "every rwkv6_1b6 decode step (serve.main --full-size)",
                         at_prefill_ms=wkv_timed["bf16"]["sequential_kernel_ms"],
                         decode_batch4=wkv_timed[("decode", WKV_DECODE[0])])]
     kernels += [backward_row(bwd_timed[("llama3_8b", "bf16")], bwd_checks, "backward_wgmma",
@@ -3054,7 +3237,14 @@ def main() -> int:
             steps_train["grad_accum_1"]["launches"][-1]["wgmma"],
         "steps_train grad_accum 2 (one step)": steps_train["grad_accum_2"]["launches"][-1]["wgmma"],
         "steps_decode (one step)": steps_decode["flash_launches"],
-        f"vision_train ({TRAIN_STEPS} steps)": vision_train["launches"]["wgmma"]}
+        f"vision_train ({TRAIN_STEPS} steps)": vision_train["launches"]["wgmma"],
+        f"pipeline (llama3_8b {TRAIN_LAYERS} layers, one stage, {PIPELINE_MICROBATCHES} "
+        f"microbatches, one call)": pipeline["launches"]["wgmma"]}
+    entry("flash_attention_bhsd[wgmma]")["launches_predicted_by_dry_run"] = {
+        f"{name} (mesh of one)": row["predicted_launches"] for name, row in dry_steps.items()}
+    entry("flash_attention_bhsd[wgmma]")["launches_predicted_by_production_dry_run"] = {
+        f"{name} (llama3_8b, 16 x 16, per rank)": row["cell"]["kernel_launches"]
+        for name, row in production.items()}
     entry("flash_attention_bwd[backward_wgmma]")["launches_on_step_paths"] = {
         "steps_train (one step)": steps_train["grad_accum_1"]["launches"][-1]["backward_wgmma"],
         "steps_train grad_accum 2 (one step)":

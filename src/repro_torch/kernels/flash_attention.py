@@ -32,6 +32,11 @@ never silently vanishes:
 
 The TPU kernel has no backward; JAX differentiates its jnp model path
 instead.
+
+Meta tensors (the dry run, :mod:`repro_torch.launch.dryrun`) take the
+CUDA path's checks and allocations, and in place of each launch the
+kernel's work goes to :func:`cost.record` (the operations and bytes of
+``kernels/cost.py``); no kernel runs and no launch is counted.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import functools
 
 import torch
 
+from . import cost
 from ._build import load_library
 from .ref import check_attention_shapes, reference_attention
 
@@ -86,10 +92,16 @@ def _kernel(variant: str):
     return fn
 
 
+def _on_meta(*ts) -> bool:
+    return all(t.device.type == "meta" for t in ts)
+
+
 def _check_cuda(q, k, v) -> str:
-    """Raise unless the kernels take these CUDA tensors; the forward variant."""
+    """Raise unless the kernels take these CUDA (or meta) tensors; the
+    forward variant."""
     devices = {t.device for t in (q, k, v)}
-    if len(devices) != 1 or q.device.type != "cuda":
+    meta = _on_meta(q, k, v)
+    if not meta and (len(devices) != 1 or q.device.type != "cuda"):
         raise ValueError(f"q, k, v must all be on one CUDA device or all on "
                          f"the CPU; got {sorted(map(str, devices))}")
     _, s, hd = q.shape
@@ -102,10 +114,17 @@ def _check_cuda(q, k, v) -> str:
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel takes contiguous q, k, v")
     variant = kernel_variant(q.dtype, hd)
-    if variant == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if variant == "wgmma" and not meta and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core kernel takes q, k, v at 16-byte-aligned "
                          "addresses (TMA); got a view that starts off that alignment")
     return variant
+
+
+def _record(name: str, variant: str, flops: int, nbytes: int) -> None:
+    """A launch on meta tensors: no kernel runs and no count moves; the
+    work goes to the dry run's analysis (:func:`cost.record`), at the
+    tensor cores' rate for the tensor-core kernels, else at f32's."""
+    cost.record(name, flops, nbytes, "bf16" if variant in ("wgmma", "backward_wgmma") else "f32")
 
 
 def _launch(variant: str, device, causal: bool, *args) -> None:
@@ -129,6 +148,10 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     o = torch.empty_like(q)
     lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if _on_meta(q):
+        _record(f"flash_attention_bhsd[{variant}]", variant, cost.attention_flops(
+            bh, s, hd, causal), cost.attention_bytes(bh, k.shape[0], s, hd, q.element_size()))
+        return o, lse
     _launch(variant, q.device, causal, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), bh, k.shape[0], s, hd,
             int(q.dtype == torch.bfloat16), int(causal), hd ** -0.5)
@@ -153,8 +176,9 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal: bool = True):
         raise ValueError(f"lse must be a contiguous float32 [{bh}, {s}] tensor on q's device")
     do = do.contiguous()
     variant = backward_variant(q.dtype, hd)
+    meta = _on_meta(q, do)
     if variant == "backward_wgmma":
-        if do.data_ptr() % 16:
+        if not meta and do.data_ptr() % 16:
             raise ValueError("the tensor-core backward takes dO at a 16-byte-aligned "
                              "address (TMA); got a view that starts off that alignment")
         # each row's {lse in log2 units, D}, written by its first kernel
@@ -163,6 +187,10 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal: bool = True):
     else:
         scratch = torch.empty_like(lse)    # D
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if meta:
+        _record(f"flash_attention_bwd[{variant}]", variant, cost.bwd_flops(bh, s, hd, causal),
+                cost.bwd_bytes(bh, k.shape[0], s, hd, q.element_size()))
+        return dq, dk, dv
     _launch(variant, q.device, causal, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), bh, k.shape[0], s, hd, int(q.dtype == torch.bfloat16), int(causal),
@@ -191,7 +219,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_bhsd(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """Flash attention over a flattened (batch, head) leading dim.
 
-    CPU tensors take the plain version.  CUDA tensors launch a kernel,
+    CPU tensors take the plain version.  Meta tensors return empty outputs
+    and record the work.  CUDA tensors launch a kernel,
     which takes contiguous f32 or bf16 tensors with hd in
     :data:`KERNEL_HEAD_DIMS` (16-byte-aligned ones for the tensor-core
     kernel, whose TMA loads need it); anything else raises.  Under grad

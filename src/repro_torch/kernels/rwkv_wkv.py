@@ -33,6 +33,9 @@ of :func:`kernel_variant`, again with no fallback:
   all of S, the state recomputed from checkpoints it writes itself.
 
 The TPU kernel has no backward; JAX differentiates its jnp model path.
+Meta tensors (the dry run) take the CUDA path's checks and allocations,
+and in place of each launch the kernel's work goes to :func:`cost.record`;
+no kernel runs and no launch is counted.
 :func:`wkv_bhsd_bwd_plain` and :func:`wkv_bhsd_bwd_chunked_plain` rehearse
 the two backward kernels' arithmetic in torch for the CPU tests; the
 plain gradient the card is held against is autograd of
@@ -46,6 +49,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from . import cost
 from ._build import load_library
 from .ref import check_wkv_shapes, reference_wkv
 
@@ -116,12 +120,18 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
 
 def launch(variant: str, r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of ``variant`` on checked CUDA inputs; counts nothing.
+    On meta inputs it allocates the outputs and records the work
+    (:func:`cost.record`) instead.
 
     :func:`wkv_bhsd` checks and counts; ``chip_smoke.py`` calls this to
     time a kernel on inputs the wrapper would give the other one."""
     b, h, s, hd = r.shape
     out = torch.empty_like(r)
     sT = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        cost.record(f"wkv_bhsd[{variant}]", cost.wkv_flops(b, h, s, hd),
+                    cost.wkv_bytes(b, h, s, hd, r.element_size(), w.element_size()), "f32")
+        return out, sT
     flags = ((int(w.dtype == torch.bfloat16),) if variant == "chunked"
              else (int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16)))
     with torch.cuda.device(r.device):
@@ -142,9 +152,11 @@ def _aligned16(t: torch.Tensor) -> bool:
 
 
 def _check_cuda(r, k, v, w, u, s0) -> str:
-    """Raise unless the kernels take these CUDA tensors; the forward variant."""
+    """Raise unless the kernels take these CUDA (or meta) tensors; the
+    forward variant."""
     devices = {t.device for t in (r, k, v, w, u, s0)}
-    if len(devices) != 1 or r.device.type != "cuda":
+    meta = devices == {torch.device("meta")}
+    if not meta and (len(devices) != 1 or r.device.type != "cuda"):
         raise ValueError(f"r, k, v, w, u, s0 must all be on one CUDA device or all "
                          f"on the CPU; got {sorted(map(str, devices))}")
     b, h, s, hd = r.shape
@@ -164,7 +176,7 @@ def _check_cuda(r, k, v, w, u, s0) -> str:
         raise ValueError("kernel takes r, k, v, w in one layout (equal strides); got "
                          f"{[t.stride() for t in (r, k, v, w)]}")
     variant = kernel_variant(r.dtype, w.dtype, hd, s)
-    if variant == "chunked" and not all(_aligned16(t) for t in (r, k, v, w)):
+    if variant == "chunked" and not meta and not all(_aligned16(t) for t in (r, k, v, w)):
         raise ValueError("the chunked kernel takes r, k, v, w at 16-byte-aligned bases "
                          "and strides (cp.async); got a view off that alignment")
     return variant
@@ -179,7 +191,8 @@ def _forward(r, k, v, w, u, s0):
     """(out, sT) from one counted launch on CUDA tensors, checked here."""
     variant = _check_cuda(r, k, v, w, u, s0)
     out, sT = launch(variant, r, k, v, w, u.float().contiguous(), s0)
-    _count(variant)
+    if r.device.type != "meta":
+        _count(variant)
     return out, sT
 
 
@@ -190,8 +203,9 @@ def launch_backward(variant: str, r, k, v, w, u, s0, dout, dsT=None):
 
     :func:`wkv_bhsd_bwd` checks, picks and counts; ``chip_smoke.py`` and
     the card tests call this to run the ``"backward"`` kernel on inputs the
-    wrapper gives the other one.  Returns what :func:`wkv_bhsd_bwd`
-    returns."""
+    wrapper gives the other one.  On meta inputs it allocates what the
+    kernel writes and records the work instead.  Returns what
+    :func:`wkv_bhsd_bwd` returns."""
     b, h, s, hd = r.shape
     dr = torch.empty_like(r)
     dk, dv = (torch.empty_strided(r.shape, dr.stride(), dtype=r.dtype, device=r.device)
@@ -211,6 +225,11 @@ def launch_backward(variant: str, r, k, v, w, u, s0, dout, dsT=None):
         scratch = [torch.empty((max(b * h * n_ckpt * hd * hd, 1),), **f32)]
         flags = (int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16))
     uf = u.float().contiguous()
+    if r.device.type == "meta":
+        cost.record(f"wkv_bhsd_bwd[{variant}]", cost.wkv_bwd_flops(b, h, s, hd),
+                    cost.wkv_bwd_bytes(b, h, s, hd, r.element_size(), w.element_size()), "f32")
+        du = du.sum((0, 2)) if variant == "backward_chunked" else du.sum(0)
+        return dr, dk, dv, dw, du.to(u.dtype), ds0
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = _kernel(variant)(
@@ -244,17 +263,21 @@ def wkv_bhsd_bwd(r, k, v, w, u, s0, dout, dsT=None):
     if dout.shape != r.shape or dout.dtype != r.dtype or dout.device != r.device:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match r "
                          f"{tuple(r.shape)} {r.dtype}")
-    if dout.stride(3) != 1 or (variant == "backward_chunked" and not _aligned16(dout)):
+    meta = r.device.type == "meta"
+    if dout.stride(3) != 1 or (variant == "backward_chunked" and not meta
+                               and not _aligned16(dout)):
         # a copy, also of a contiguous view off alignment (.contiguous()
         # would return that view)
         dout = dout.clone(memory_format=torch.contiguous_format)
-        wkv_bhsd.dout_copies += 1
+        if not meta:
+            wkv_bhsd.dout_copies += 1
     if dsT is not None:
         if dsT.shape != s0.shape or dsT.device != r.device:
             raise ValueError(f"dsT {tuple(dsT.shape)} does not match s0 {tuple(s0.shape)}")
         dsT = dsT.float().contiguous()
     grads = launch_backward(variant, r, k, v, w, u, s0, dout, dsT)
-    _count(variant)
+    if not meta:
+        _count(variant)
     return grads
 
 
@@ -413,7 +436,8 @@ def wkv_bhsd(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     """WKV over r/k/v/w ``[B,H,S,hd]`` from the state s0; returns (out, sT).
 
     CPU tensors take the plain version, which autograd differentiates.
-    CUDA tensors launch a kernel, which takes r/k/v of one dtype and w,
+    Meta tensors return empty outputs and record the work.  CUDA tensors
+    launch a kernel, which takes r/k/v of one dtype and w,
     each f32 or bf16 (w is read in its own dtype, never rounded to r's),
     all four in one layout with a unit stride over hd (16-byte-aligned
     bases and strides for the chunked kernel, whose cp.async loads need

@@ -1,5 +1,5 @@
 """Launchers of the port: mesh construction, sharding rules, step
-builders, and the train/serve CLIs."""
+builders, the dry run, and the train/serve CLIs."""
 from .mesh import make_local_mesh, make_production_mesh
 from .sharding import pick_policy, tree_shardings
 from .steps import (

@@ -1,17 +1,24 @@
 """Serving launcher — port of ``repro/launch/serve.py``.
 
 Default: serve a reduced config (prefill a prompt batch, then
-greedy-decode).  ``--production`` serves the full config for real on the
-card, with bf16 parameters drawn from seed 0, once it has checked that
-they fit the device's memory; the JAX launcher only lowers a dry run
-there, which has no torch form.  Archs with a frontend (the VLM's patch
-embeddings, the encoder-decoder's speech frames) get stub frontend
-embeddings drawn after the prompt from the same generator, as in JAX.
+greedy-decode).  ``--production [--shape decode_32k]`` is JAX's: the
+full-size cell's dry run on the production mesh
+(:func:`repro_torch.launch.dryrun.run_cell`: the serve or prefill step on
+meta tensors over a fake group of 256 ranks, analysed per rank; no card
+is needed), its cell written under ``experiments/dryrun_torch/``; it
+exits 0 exactly when the cell's status is ``"ok"``.  ``--full-size``
+serves the full config for real on the device, with bf16 parameters
+drawn from seed 0, once it has checked that they fit the device's memory
+(:func:`check_fits`: whole jamba_15_large and llama32_vision_90b do not
+fit one card).  Archs with a frontend (the VLM's patch embeddings, the
+encoder-decoder's speech frames) get stub frontend embeddings drawn after
+the prompt from the same generator, as in JAX.
 
 Example::
 
     python -m repro_torch.launch.serve --arch llama3_8b --device cpu
     python -m repro_torch.launch.serve --arch llama3_8b --production
+    python -m repro_torch.launch.serve --arch llama3_8b --full-size
 """
 from __future__ import annotations
 
@@ -91,10 +98,12 @@ def _sync(device: torch.device) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--tokens", type=int, default=8)
     ap.add_argument("--production", action="store_true")
+    ap.add_argument("--full-size", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not logging.getLogger().handlers:     # CLI: bare messages on stdout
@@ -102,6 +111,9 @@ def main(argv=None) -> int:
                             stream=sys.stdout)
 
     if args.production:
+        from repro_torch.launch.dryrun import run_production
+        return run_production(args.arch, args.shape)
+    if args.full_size:
         cfg = get_config(args.arch)
         check_fits(cfg, resolve_device(args.device))
         model = LM(cfg, seed=0, device=args.device)

@@ -1,20 +1,25 @@
 """Training launcher — port of ``repro/launch/train.py``.
 
-The smoke mode (the default, and the only one yet) trains the selected
-arch's reduced config through the fault-tolerant :class:`Trainer`, on
-the card unless ``--device cpu``.  As in the JAX launcher, nothing
-supervises the run: with ``--inject-fault-at`` the injected
-:class:`~repro_torch.runtime.SimulatedFault` ends the command, and a
-rerun on the same ``--ckpt-dir`` resumes from the latest checkpoint
-(:func:`~repro_torch.runtime.run_with_restarts` is the supervisor for
-callers that want the restart in-process).  The JAX
-launcher's ``--production`` lowers the full-size train step against the
-production mesh; that dry run arrives with the port's dry-run slice
-(ROADMAP queue 1), and here the flag raises.
+Two modes:
 
-Example::
+* smoke (the default): trains the selected arch's reduced config through
+  the fault-tolerant :class:`Trainer`, on the card unless ``--device
+  cpu``.  As in the JAX launcher, nothing supervises the run: with
+  ``--inject-fault-at`` the injected
+  :class:`~repro_torch.runtime.SimulatedFault` ends the command, and a
+  rerun on the same ``--ckpt-dir`` resumes from the latest checkpoint
+  (:func:`~repro_torch.runtime.run_with_restarts` is the supervisor for
+  callers that want the restart in-process);
+* ``--production [--shape train_4k]``: the full-size train step's dry run
+  on the production mesh (:func:`repro_torch.launch.dryrun.run_cell`: the
+  step on meta tensors over a fake group of 256 ranks, analysed per rank;
+  no card is needed), its cell written under ``experiments/dryrun_torch/``;
+  exits 0 exactly when the cell's status is ``"ok"``.
+
+Examples::
 
     python -m repro_torch.launch.train --arch llama3_8b --device cpu
+    python -m repro_torch.launch.train --arch mixtral_8x7b --production --shape train_4k
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ _log = logging.getLogger(__name__)
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--seq-len", type=int, default=32)
     ap.add_argument("--batch", type=int, default=4)
@@ -50,9 +56,8 @@ def main(argv=None) -> int:
                             stream=sys.stdout)
 
     if args.production:
-        raise NotImplementedError(
-            "--production lowers the full-size train step against the production "
-            "mesh; that dry run arrives with the dry-run slice (ROADMAP queue 1)")
+        from repro_torch.launch.dryrun import run_production
+        return run_production(args.arch, args.shape)
 
     cfg = get_smoke_config(args.arch)
     shape = ShapeConfig("smoke_train", args.seq_len, args.batch, "train")

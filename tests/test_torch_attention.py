@@ -201,11 +201,23 @@ def test_sliding_window_on_a_card_tensor_raises():
         tattn.gqa_attention(q, kv, kv, sliding_window=4)
 
 
-def test_non_cpu_tensor_never_takes_the_plain_version():
+def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
+    """Meta tensors (the dry run) take the kernel's meta branch, never the
+    plain version, and launch nothing; tensors on two devices raise."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+    monkeypatch.setattr(fa, "flash_attention_bhsd_plain", plain)
     q = torch.empty(4, 8, 128, device="meta")
     kv = torch.empty(2, 8, 128, device="meta")
+    fa.reset_launch_counts()
+    out = flash_attention_bhsd(q, kv, kv)
+    assert (out.shape, out.dtype, out.device.type) == (q.shape, q.dtype, "meta")
+    assert fa.flash_attention_bhsd.launches == 0
     with pytest.raises(ValueError, match="CUDA device"):
-        flash_attention_bhsd(q, kv, kv)
+        flash_attention_bhsd(q, torch.zeros(2, 8, 128), torch.zeros(2, 8, 128))
 
 
 def test_kernel_builds_for_sm90a_into_the_ignored_build_dir():

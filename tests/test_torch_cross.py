@@ -245,12 +245,13 @@ def test_serve_main_on_cpu(arch):
 
 @pytest.mark.parametrize("arch,gb", [("jamba_15_large", 799), ("llama32_vision_90b", 181)])
 def test_production_refuses_weights_larger_than_the_device(arch, gb, monkeypatch):
-    """``--production`` checks the bf16 weights against the device's memory
-    (80 GB: one H100) before it allocates anything."""
+    """``--full-size`` (the full config served on the device; ``--production``
+    until the dry run took that flag) checks the bf16 weights against the
+    device's memory (80 GB: one H100) before it allocates anything."""
     monkeypatch.setattr(serve, "_device_memory_bytes", lambda device: 80 * 10**9)
     monkeypatch.setattr(serve, "LM", None)          # never reached
     need = get_config(arch).total_params() * 2
     with pytest.raises(ValueError, match=f"{need} bytes") as err:
-        serve.main(["--arch", arch, "--production", "--device", "cpu"])
+        serve.main(["--arch", arch, "--full-size", "--device", "cpu"])
     assert f"({gb}." in str(err.value)
     serve.check_fits(get_config("seamless_m4t_v2"), torch.device("cpu"))

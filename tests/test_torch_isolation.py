@@ -38,7 +38,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.configs.llama32_vision_90b",
                  "repro_torch.configs.seamless_m4t_v2", "repro_torch.launch",
                  "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-                 "repro_torch.launch.steps", "repro_torch.models.shards"):
+                 "repro_torch.launch.steps", "repro_torch.models.shards",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+                 "repro_torch.kernels.cost", "repro_torch.runtime.pipeline"):
         assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -10,6 +10,7 @@ moves AdamW's normalized update only at f32 rounding).  Every test
 closes or joins the threads it starts.
 """
 import dataclasses
+import json
 import threading
 
 import jax
@@ -296,9 +297,19 @@ class TestLauncher:
                            "--batch", "2", "--device", "cpu",
                            "--ckpt-dir", str(tmp_path)]) == 0
 
-    def test_production_waits_for_the_dry_run_slice(self):
-        with pytest.raises(NotImplementedError, match="dry-run slice"):
-            train.main(["--arch", "llama3_8b", "--production"])
+    def test_production_waits_for_the_dry_run_slice(self, tmp_path, monkeypatch):
+        """``--production`` is the dry run of the train step on the
+        production mesh (JAX's flag), which the dry-run slice brought: the
+        smoke config at a small shape here, its cell written."""
+        from repro_torch.configs import SHAPES, ShapeConfig, get_smoke_config
+        from repro_torch.launch import dryrun, steps
+        SHAPES.setdefault("trainer_dry_train", ShapeConfig("trainer_dry_train", 16, 32, "train"))
+        monkeypatch.setattr(steps, "get_config", get_smoke_config)
+        monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
+        assert train.main(["--arch", "llama3_8b", "--production",
+                           "--shape", "trainer_dry_train"]) == 0
+        cell = json.loads(dryrun.cell_path("llama3_8b", "trainer_dry_train", False).read_text())
+        assert cell["status"] == "ok" and cell["n_chips"] == 256
 
     def test_default_device_is_cuda(self, tmp_path):
         if torch.cuda.is_available():

@@ -12,7 +12,8 @@ of phases that failed.
 
 Phases: ``steps_prefill``, ``steps_decode`` (after ``steps_prefill``, on
 its model), ``steps_train``, ``steps_rwkv_train``, ``jamba_train``,
-``vision_train``.  ``--vision-cut LAYERS PERIOD`` trains vision at another
+``vision_train``, ``dryrun_steps`` (after the first three, whose rows it
+reads), ``production_dryrun``, ``pipeline``.  ``--vision-cut LAYERS PERIOD`` trains vision at another
 depth and ``cross_attn_period`` than ``chip_smoke.VISION_TRAIN_CUT``.
 The step phases take the Trainer's step time they are set beside as
 ``--trainer-step-s`` (the ratio is reported, not checked).
@@ -31,7 +32,7 @@ import chip_smoke as cs  # noqa: E402
 import torch  # noqa: E402
 
 PHASES = ("steps_prefill", "steps_decode", "steps_train", "steps_rwkv_train",
-          "jamba_train", "vision_train")
+          "jamba_train", "vision_train", "dryrun_steps", "production_dryrun", "pipeline")
 
 
 def main(argv=None) -> int:
@@ -53,15 +54,25 @@ def main(argv=None) -> int:
     held = {}
 
     def prefill():
-        held["model"], _ = cs.phase_steps_prefill(llama, mesh)
+        held["model"], held["prefill"] = cs.phase_steps_prefill(llama, mesh)
+
+    def decode():
+        held["decode"] = cs.phase_steps_decode(held.pop("model"), mesh)
+
+    def train():
+        held["train"] = cs.phase_steps_train(llama, mesh, args.trainer_step_s)
     runs = {"steps_prefill": prefill,
-            "steps_decode": lambda: cs.phase_steps_decode(held.pop("model"), mesh),
-            "steps_train": lambda: cs.phase_steps_train(llama, mesh, args.trainer_step_s),
+            "steps_decode": decode,
+            "steps_train": train,
             "steps_rwkv_train": lambda: cs.phase_steps_rwkv_train(rwkv, mesh,
                                                                   args.trainer_step_s),
             "jamba_train": lambda: cs.phase_jamba_train(cs.get_config("jamba_15_large")),
             "vision_train": lambda: cs.phase_vision_train(
-                cs.get_config("llama32_vision_90b"))}
+                cs.get_config("llama32_vision_90b")),
+            "dryrun_steps": lambda: cs.phase_dryrun_steps(llama, held["prefill"],
+                                                          held["decode"], held["train"]),
+            "production_dryrun": cs.phase_production_dryrun,
+            "pipeline": lambda: cs.phase_pipeline(llama)}
     failed = 0
     for name in args.phases:
         torch.cuda.reset_peak_memory_stats()
