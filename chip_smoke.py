@@ -31,7 +31,22 @@ a non-zero exit if it fails:
                times at the one-layer prefill shapes of llama3_8b (32/8),
                olmoe_1b_7b (16/16), jamba_15_large (64/8) and seamless_m4t_v2
                (16/16 at hd 64, non-causal as its encoder and causal), with
-               achieved TFLOP/s, share of the bound and the ratio to SDPA
+               achieved TFLOP/s, share of the bound and the ratio to SDPA;
+               then (run after phase 8b) the sliding window
+               (``WINDOW_CASES``): both forward kernels with a window vs the
+               plain version, f32 and bf16, at mixtral_8x7b's GQA 32/8 hd 128
+               at S = 8192 with its window of
+               4096, a ragged S = 1000 with W = 300 and W = 1, W = 64 at hd 64
+               and a window with ``causal=False``; each with a planted fault
+               (one V row inside the window zeroed) that the limit must
+               reject, each launch counted under its "+window" mask, and
+               windows of S and 2S bit-equal to none; at mixtral's shape a
+               profiler window times the windowed kernel against the same
+               call with no window (CUDA events, and the kernel's device
+               time from a profiler window), and SDPA with a boolean mask of
+               the window (the library time), with both bounds from
+               ``cost.py``; the kernel alone at 1 x 32768 (the 32k
+               prefill's call)
 3. wkv         ``wkv_bhsd`` vs its plain version, out and state, f32 and bf16
                r/k/v with f32 w, two laws of w, nonzero s0, at the test
                shapes and a ragged S=1000 (contiguous [B,H,S,hd]) and at
@@ -83,7 +98,13 @@ a non-zero exit if it fails:
                version and SDPA's backward (the yardstick only; also at
                seamless_m4t_v2's 16/16 at hd 64, causal), the
                five-product bound and the bound of the products the
-               tensor-core kernel runs (``WGMMA_BWD_PRODUCTS``)
+               tensor-core kernel runs (``WGMMA_BWD_PRODUCTS``); then both
+               backward kernels under the window cases of phase 2, against
+               autograd of the plain version with the window, with a planted
+               fault (the last query's dO row zeroed; at W = 1 no gradient
+               reads V), reruns bit-equal, windows of S and 2S
+               bit-equal to none, and times at mixtral's shape beside the
+               unwindowed call and SDPA's backward with the mask
 8b. wkv_backward  both WKV backward kernels vs autograd of the plain
                version: dr, dk, dv, dw, du and ds0, f32 and bf16 r/k/v with
                f32 w, two laws of w, nonzero s0 and dsT, at the test
@@ -156,7 +177,15 @@ a non-zero exit if it fails:
                so takes the tensor-core kernel (4 GQA 32/8 launches); the
                prefill's k/v written into a decode cache, then 16 greedy
                decode steps past the window, which ``decode_attention``
-               masks; finite logits
+               masks; finite logits; then ``prefill`` on 1 x 32768 tokens at
+               the same 4 layers, twice: 4 ``wgmma/causal+window`` launches a
+               call, finite logits, tokens/s, a profiler window (the top
+               kernels, the flash kernel's device time); f32 at 2 layers over
+               1 x 8192 (capacity factor 16): prefill logits through the CUDA-core
+               windowed kernel vs ``gqa_attention`` routed to the chunked
+               scan, within phase 5's 2e-3; one bf16 ``Trainer.step_fn`` step
+               at 1 layer on 1 x 8192 through the windowed tensor-core forward
+               and ``backward_wgmma``: finite loss, 1 + 1 windowed launches
 16. jamba      jamba_15_large at full width, 4 of 72 layers at
                attn_layer_period 4 (mamba, mamba+MoE, mamba, attn+MoE; 23.07 B
                parameters), bf16: ``prefill`` on 2 x 4096 tokens, 1
@@ -229,21 +258,30 @@ a non-zero exit if it fails:
                fraction beside the predicted one
 27. production_dryrun  ``launch.train --arch llama3_8b --production`` and
                ``launch.serve --arch llama3_8b --production`` (the 16 x 16
-               dry runs over a fake group of 256 ranks), each in a process
-               of its own, at once: both exit 0 with an "ok" cell; its
-               per-rank GiB, dominant term, useful FLOP fraction, wall time
+               dry runs over a fake group of 256 ranks), and ``launch.dryrun
+               --arch mixtral_8x7b --shape prefill_32k`` (its windowed
+               attention through the kernel's meta branch), each in a
+               process of its own, at once: each exits 0 with an "ok" cell;
+               its per-rank GiB, dominant term, useful FLOP fraction, wall
+               time
 28. pipeline   ``runtime/pipeline.pipeline_apply`` with one stage on the
                NCCL mesh of one: llama3_8b's 8 blocks, bf16, on 4 x 4096
                hidden states in 4 microbatches, within phase 2's bf16 bar
                of the same blocks on the whole batch; 32 flash launches
+28a. train_lm_example  ``examples/train_lm_torch.py --preset tiny`` on the
+               card, a process of its own with its own time limit: exit 0
+               and a falling loss
 29. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel (the flash forward also at olmoe_1b_7b's,
                jamba_15_large's, llama32_vision_90b's and seamless_m4t_v2's
                shapes and the tensor-core backward at olmoe_1b_7b's and
                seamless_m4t_v2's, with their launches on those paths; the
                launches of phases 20-25 and 28 under
-               ``launches_on_step_paths``, and the dry runs' predicted ones),
-               and the final ``{"ok": true, "device": ...}``.
+               ``launches_on_step_paths``, and the dry runs' predicted ones;
+               the windowed forward kernels and the windowed tensor-core
+               backward as entries ``...@mixtral_8x7b+window``, with their
+               launches on mixtral's windowed paths), and the final
+               ``{"ok": true, "device": ...}``.
 
 Prefill calls and profile windows are timed after a full garbage
 collection, and each reports the collector's seconds inside it; the
@@ -366,6 +404,31 @@ BWD_SHAPES = KERNEL_SHAPES[:8] + [
     (GRAD_CHECK[0], GRAD_CHECK[1], 32, 8, 128), (TRAINER_SHAPE[1], TRAINER_SHAPE[0], 4, 2, 16),
     (GRAD_CHECK[0], GRAD_CHECK[1], 16, 16, 128),
     SEAMLESS_SHAPE, (GRAD_CHECK[0], GRAD_CHECK[1], 16, 16, 64)]    # phases 19, 19b
+# The sliding window (phases 2, 8 and 15): mixtral_8x7b's window of 4096 over
+# its GQA 32/8 layer at hd 128, at twice the window (the f32 check's and the
+# training step's length) and at the 32k prefill's length, where the plain
+# version runs WINDOW_BLOCK query rows at a time (its 32 x 32768^2 f32 scores
+# in one call would not fit the card)
+MIXTRAL_WINDOW = 4096
+WINDOW_SHAPE = (1, 8192, 32, 8, 128)
+WINDOW_LONG = (1, 32768, 32, 8, 128)
+WINDOW_BLOCK = 2048
+# (b, s, h, hkv, hd, window, masks) of the windowed calls held against the
+# plain version in both dtypes: mixtral's layer; a ragged S with a window off
+# every tile size and with one key; a window of one 64-key tile at hd 64; a
+# window without the causal mask (every later key kept)
+WINDOW_CASES = [(*WINDOW_SHAPE, MIXTRAL_WINDOW, (True,)),
+                (1, 1000, 32, 8, 128, 300, (True,)),
+                (1, 1000, 32, 8, 128, 1, (True,)),
+                (2, 1000, 16, 4, 64, 64, (True,)),
+                (1, 2048, 32, 8, 128, 512, (False,))]
+# mixtral_8x7b's windowed cells: the prefill at 32k (4 layers), the f32
+# check at 2 layers over WINDOW_SHAPE's length, one training step at 1 layer
+MIXTRAL_LONG_PREFILL = (1, 32768)
+MIXTRAL_F32_LAYERS = 2
+MIXTRAL_TRAIN_LAYERS = 1
+# examples/train_lm_torch.py --preset tiny on the card (phase 28a)
+TRAIN_LM_EXAMPLE_TIMEOUT_S = 300
 # olmoe_1b_7b: full depth for serving; 6 of 16 layers for training (2.72 B
 # parameters: 43.6 GB of params, grads and AdamW state)
 OLMOE_TRAIN_LAYERS = 6
@@ -628,7 +691,8 @@ def phase_build() -> None:
                    "flash_bwd_dkdv_wgmma_kernel"):
         sass = sass_instructions("flash_attention", kernel, ("HGMMA", "UTMALDG", "LDL", "STL"))
         emit("build", kernel="flash_attention", sass=sass)
-        check(len(sass) == len(fa.WGMMA_HEAD_DIMS) and
+        # one instantiation per head dim, with and without a sliding window
+        check(len(sass) == 2 * len(fa.WGMMA_HEAD_DIMS) and
               all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in sass.values()),
               f"{kernel} lacks HGMMA or UTMALDG in its SASS: {sass}")
     lib = _build.load_library("rwkv_wkv")
@@ -716,7 +780,7 @@ def limit_ratio(out, ref, atol, rtol) -> float:
     return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
 
 
-def cuda_core_bf16_ms(q, k, v, causal: bool, reps: int) -> float:
+def cuda_core_bf16_ms(q, k, v, causal: bool, reps: int, window: int = 0) -> float:
     """The CUDA-core kernel's time on bf16 inputs that the wrapper sends to
     the tensor-core kernel: the earlier design, timed in the same run.
     Called through its C entry point, so no launch count moves."""
@@ -725,7 +789,8 @@ def cuda_core_bf16_ms(q, k, v, causal: bool, reps: int) -> float:
     stream = torch.cuda.current_stream().cuda_stream
     bh, s, hd = q.shape
     launch = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),  # noqa: E731
-                        None, bh, k.shape[0], s, hd, 1, int(causal), hd ** -0.5, stream)
+                        None, bh, k.shape[0], s, hd, 1, int(causal), window, hd ** -0.5,
+                        stream)
     check(launch() == 0, "the CUDA-core kernel refused a bf16 launch")
     return time_ms(launch, reps)
 
@@ -796,6 +861,172 @@ def phase_kernel() -> tuple[dict, list]:
     return timed, rows
 
 
+def window_fault_v(v, s: int, window: int):
+    """V with one row inside the window zeroed: the key at the lower edge
+    of the last query's window, which a kernel that masked or skipped one
+    key too many at that edge would drop."""
+    v = v.clone()
+    v[:, max(s - window, 0)] = 0
+    return v
+
+
+def plain_window_blocked(q, k, v, window: int, block: int = WINDOW_BLOCK):
+    """The plain version of a causal windowed call, ``block`` query rows at
+    a time: rows [q0, q1) read only keys [q0 - W + 1, q1), and the mask
+    depends on q - k alone, so ``flash_attention_bhsd_plain`` over that span
+    gives those rows the mask of the whole call."""
+    s = q.shape[1]
+    rows = []
+    for q0 in range(0, s, block):
+        q1, a = min(q0 + block, s), max(0, q0 - window + 1)
+        rows.append(fa.flash_attention_bhsd_plain(
+            q[:, a:q1], k[:, a:q1], v[:, a:q1], causal=True, sliding_window=window)[:, q0 - a:])
+    return torch.cat(rows, dim=1)
+
+
+def window_kernel_times(q, k, v, causal: bool, window: int, reps: int) -> dict:
+    """The windowed forward kernel against the same call without a window:
+    CUDA events over ``reps`` calls, as phase 2 times every kernel, and a
+    profiler window of each (the kernel's own device time; None where the
+    profiler recorded fewer than half the launches, which it has been seen
+    to do in a long process)."""
+    hd = q.shape[-1]
+    kernel = ("flash_fwd_wgmma_kernel" if fa.kernel_variant(q.dtype, hd) == "wgmma"
+              else "flash_fwd_kernel")
+    calls = {"": lambda: fa.flash_attention_bhsd(q, k, v, causal=causal, sliding_window=window),
+             "_no_window": lambda: fa.flash_attention_bhsd(q, k, v, causal=causal)}
+    row = {}
+    for tag, fn in calls.items():
+        row[f"kernel{tag}_ms"] = time_ms(fn, reps)
+        total, count = profiled_ms(fn, reps, (kernel,))[kernel]
+        row[f"profiler_kernel{tag}_ms"] = total / count if reps // 2 <= count <= reps else None
+        row[f"profiler_kernel{tag}_seen"] = count
+    return row
+
+
+def window_times(q, k, v, causal: bool, window: int, name: str) -> dict:
+    """The windowed kernel against the same call without a window
+    (:func:`window_kernel_times`), the plain version and SDPA with a boolean
+    mask of the same window (the library call, the yardstick only: the
+    port never calls SDPA); the bounds of both calls from ``cost.py``."""
+    bh, s, hd = q.shape
+    row = window_kernel_times(q, k, v, causal, window, 10)
+    row["plain_ms"] = time_ms(lambda: fa.flash_attention_bhsd_plain(
+        q, k, v, causal=causal, sliding_window=window), 2)
+    pos = torch.arange(s, device="cuda")
+    keep = pos[None, :] > pos[:, None] - window
+    if causal:
+        keep &= pos[None, :] <= pos[:, None]
+    q4, k4, v4 = (t.view(1, -1, s, hd) for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=keep, enable_gqa=True)
+    row["library_ms"] = time_ms(sdpa, 5)
+    ref = fa.flash_attention_bhsd_plain(q, k, v, causal=causal, sliding_window=window)
+    row["library_max_abs_err"] = float((sdpa().reshape(q.shape).float() - ref.float()).abs().max())
+    del ref
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(
+        bh, k.shape[0], s, hd, causal, name, q.element_size(), window)
+    row["bound_no_window_ms"], _ = attention_bound_ms(bh, k.shape[0], s, hd, causal, name,
+                                                      q.element_size())
+    row["kept_pairs_per_head"] = cost.attention_pairs(s, causal, window)
+    row["achieved_tflops"] = attention_flops(bh, s, hd, causal, window) / row["kernel_ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    row["no_window_over_window"] = row["kernel_no_window_ms"] / row["kernel_ms"]
+    row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+    if name == "bf16":
+        row["cuda_core_kernel_ms"] = cuda_core_bf16_ms(q, k, v, causal, 3, window)
+    return row
+
+
+def phase_kernel_window() -> tuple[dict, list]:
+    """Phase 2's windowed calls: both forward kernels with a sliding window
+    (``WINDOW_CASES``, f32 and bf16) vs the plain version with the same
+    window, at phase 2's limits; a planted fault (one V row inside the
+    window zeroed) that the limit must reject; a window of S and 2S bit-equal
+    to none.  The 32k prefill's call (``WINDOW_LONG``, bf16) likewise, against
+    :func:`plain_window_blocked`.  Times at ``WINDOW_SHAPE`` (both dtypes) and
+    ``WINDOW_LONG``, keyed by dtype and "long"."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    timed, rows = {}, []
+    for b, s, h, hkv, hd, window, masks in WINDOW_CASES:
+        for name, dt in dtypes.items():
+            q, k, v = (torch.randn((b * n, s, hd), generator=gen, device="cuda").to(dt)
+                       for n in (h, hkv, hkv))
+            for causal in masks:
+                fa.reset_launch_counts()
+                out = fa.flash_attention_bhsd(q, k, v, causal=causal, sliding_window=window)
+                by_mask = dict(fa.flash_attention_bhsd.mask_launches)
+                ref = fa.flash_attention_bhsd_plain(q, k, v, causal=causal, sliding_window=window)
+                torch.cuda.synchronize()
+                atol, rtol = TOL[name]
+                variant = fa.kernel_variant(dt, hd)
+                mask = fa.mask_name(causal, window, s)
+                row = dict(shape=[b, s, h, hkv, hd], window=window, dtype=name, causal=causal,
+                           variant=variant, mask_launches=by_mask,
+                           max_abs_err=float((out.float() - ref.float()).abs().max()),
+                           atol=atol, rtol=rtol,
+                           limit_ratio=limit_ratio(out.float(), ref.float(), atol, rtol))
+                row["ok"] = row["limit_ratio"] <= 1
+                bad = fa.flash_attention_bhsd_plain(q, k, window_fault_v(v, s, window),
+                                                    causal=causal, sliding_window=window)
+                row["fault_limit_ratio"] = limit_ratio(bad.float(), ref.float(), atol, rtol)
+                row["fault_rejected"] = row["fault_limit_ratio"] > 1
+                del bad, ref
+                none = fa.flash_attention_bhsd(q, k, v, causal=causal)
+                row["window_ge_s_bit_equal"] = all(torch.equal(none, fa.flash_attention_bhsd(
+                    q, k, v, causal=causal, sliding_window=w)) for w in (s, 2 * s))
+                del none
+                if (b, s, h, hkv, hd) == WINDOW_SHAPE:
+                    row.update(window_times(q, k, v, causal, window, name))
+                    timed[name] = row
+                emit("kernel_window", **row)
+                rows.append(row)
+                check(mask.endswith("+window") and by_mask == {f"{variant}/{mask}": 1},
+                      f"a windowed call counted {by_mask}, want one {variant}/{mask}")
+                check(row["ok"], f"the windowed kernel disagrees with its plain version: {row}")
+                check(row["fault_rejected"], f"the limit lets a zeroed V row through: {row}")
+                check(row["window_ge_s_bit_equal"],
+                      f"a window of S or 2S does not give the bits of none: {row}")
+            del q, k, v, out
+    # the 32k prefill's call against the plain version run a block of query
+    # rows at a time, at phase 2's bf16 limits, with the planted fault
+    b, s, h, hkv, hd = WINDOW_LONG
+    q, k, v = (torch.randn((b * n, s, hd), generator=gen, device="cuda").bfloat16()
+               for n in (h, hkv, hkv))
+    atol, rtol = TOL["bf16"]
+    fa.reset_launch_counts()
+    out = fa.flash_attention_bhsd(q, k, v, sliding_window=MIXTRAL_WINDOW)
+    by_mask = dict(fa.flash_attention_bhsd.mask_launches)
+    ref = plain_window_blocked(q, k, v, MIXTRAL_WINDOW).float()
+    row = dict(shape=list(WINDOW_LONG), window=MIXTRAL_WINDOW, dtype="bf16", causal=True,
+               variant="wgmma", mask_launches=by_mask, plain_block_rows=WINDOW_BLOCK,
+               finite=bool(torch.isfinite(out).all()),
+               max_abs_err=float((out.float() - ref).abs().max()), atol=atol, rtol=rtol,
+               limit_ratio=limit_ratio(out.float(), ref, atol, rtol))
+    row["ok"] = row["limit_ratio"] <= 1
+    bad = plain_window_blocked(q, k, window_fault_v(v, s, MIXTRAL_WINDOW), MIXTRAL_WINDOW)
+    row["fault_limit_ratio"] = limit_ratio(bad.float(), ref, atol, rtol)
+    row["fault_rejected"] = row["fault_limit_ratio"] > 1
+    del bad, ref, out
+    row["plain_ms"] = time_ms(lambda: plain_window_blocked(q, k, v, MIXTRAL_WINDOW), 1)
+    row.update(window_kernel_times(q, k, v, True, MIXTRAL_WINDOW, 3))
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(b * h, b * hkv, s, hd, True, "bf16", 2,
+                                                          MIXTRAL_WINDOW)
+    row["bound_no_window_ms"], _ = attention_bound_ms(b * h, b * hkv, s, hd, True, "bf16", 2)
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    row["no_window_over_window"] = row["kernel_no_window_ms"] / row["kernel_ms"]
+    emit("kernel_window", **row)
+    check(by_mask == {"wgmma/causal+window": 1},
+          f"the 32k windowed call counted {by_mask}, want one wgmma/causal+window")
+    check(row["finite"], f"the windowed kernel at 32k gave non-finite output: {row}")
+    check(row["ok"], f"the windowed kernel at 32k disagrees with its plain version: {row}")
+    check(row["fault_rejected"], f"the limit at 32k lets a zeroed V row through: {row}")
+    timed["long"] = row
+    del q, k, v
+    return timed, rows
+
+
 def wkv_inputs(b, s, h, hd, dtype, w_law, gen, model_layout=False):
     """r/k/v/w [B,H,S,hd], u [H,hd], s0 [B,H,hd,hd] f32 on the card.
 
@@ -847,38 +1078,10 @@ def wkv_tensor_flops(b, h, s, hd) -> int:
     return per_chunk * (hd // 16) * b * h * -(-s // 16)
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Device time per call of the kernels whose name contains ``kernel``,
-    from ``torch.profiler``: for launches too short for CUDA events around
-    a host-bound loop."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(3):      # the profiler has been seen to drop launches; retry
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key:
-                us = getattr(e, "self_device_time_total", None)
-                total += e.self_cuda_time_total if us is None else us
-                count += e.count
-        if count == reps:
-            return total / 1e3 / reps
-        seen.append(count)
-        emit("profiler_retry", kernel=kernel, seen=count, want=reps)
-    raise RuntimeError(f"profiler saw {seen} launches of {kernel} in three tries, want {reps}")
-
-
-def kernel_split_ms(fn, reps: int, kernels) -> dict:
-    """Device time per launch of each kernel named in ``kernels`` (a name
-    part) over ``reps`` calls of ``fn`` that launch each once, from one
-    profiler window, divided by the launches the profiler recorded: it has
-    been seen to drop the first launch of a window.  Keys
-    ``<name>_ms`` and ``<name>_seen``."""
+def profiled_ms(fn, reps: int, kernels) -> dict:
+    """``{name: (device ms, launches recorded)}`` of the kernels whose name
+    contains each of ``kernels``, over ``reps`` calls of ``fn`` in one
+    ``torch.profiler`` window after one call outside it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -894,9 +1097,38 @@ def kernel_split_ms(fn, reps: int, kernels) -> dict:
                 us = getattr(e, "self_device_time_total", None)
                 total += e.self_cuda_time_total if us is None else us
                 count += e.count
+        out[name] = (total / 1e3, count)
+    return out
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time per launch of the kernels whose name contains ``kernel``,
+    from ``torch.profiler``: for launches too short for CUDA events around
+    a host-bound loop.  Per launch the profiler recorded: it has been seen
+    to drop one launch of a window, and now and then most or all of them,
+    so a window that recorded fewer than half is taken again, three times
+    at most."""
+    seen = []
+    for _ in range(3):
+        total, count = profiled_ms(fn, reps, (kernel,))[kernel]
+        if reps // 2 <= count <= reps:
+            return total / count
+        seen.append(count)
+        emit("profiler_retry", kernel=kernel, seen=count, want=reps)
+    raise RuntimeError(f"profiler saw {seen} launches of {kernel} in three tries, want {reps}")
+
+
+def kernel_split_ms(fn, reps: int, kernels) -> dict:
+    """Device time per launch of each kernel named in ``kernels`` (a name
+    part) over ``reps`` calls of ``fn`` that launch each once, from one
+    profiler window, divided by the launches the profiler recorded: it has
+    been seen to drop the first launch of a window.  Keys
+    ``<name>_ms`` and ``<name>_seen``."""
+    out = {}
+    for name, (total, count) in profiled_ms(fn, reps, kernels).items():
         check(reps // 2 <= count <= reps, f"the profiler saw {count} launches of {name}, "
                                           f"want {reps}")
-        out[f"{name}_ms"], out[f"{name}_seen"] = total / 1e3 / count, count
+        out[f"{name}_ms"], out[f"{name}_seen"] = total / count, count
     return out
 
 
@@ -1776,10 +2008,10 @@ def phase_rwkv_main_path() -> dict:
     return launches
 
 
-def attention_grads(fn, q, k, v, do, causal):
+def attention_grads(fn, q, k, v, do, causal, window: int = 0):
     """(out, (dq, dk, dv)) of ``fn`` by autograd on fresh leaves."""
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = fn(*leaves, causal=causal)
+    out = fn(*leaves, causal=causal, sliding_window=window)
     return out, torch.autograd.grad(out, leaves, do)
 
 
@@ -1863,7 +2095,7 @@ def cuda_core_bwd_bf16_ms(q, k, v, lse, do, reps: int) -> float:
     stream = torch.cuda.current_stream().cuda_stream
     launch = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),  # noqa: E731
                         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), bh, k.shape[0], s, hd, 1, 1, hd ** -0.5, stream)
+                        dv.data_ptr(), bh, k.shape[0], s, hd, 1, 1, 0, hd ** -0.5, stream)
     check(launch() == 0, "the CUDA-core backward refused a bf16 launch")
     return time_ms(launch, reps)
 
@@ -1907,6 +2139,119 @@ def backward_times(q, k, v, do, name) -> dict:
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
     row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
     return row
+
+
+def window_backward_times(q, k, v, do, window: int, name: str) -> dict:
+    """The windowed backward (causal) against the same call without a
+    window (CUDA events over the backward kernel alone), autograd of the
+    plain version and SDPA's backward with a boolean mask of the window
+    (the yardstick only); the bounds of both from ``cost.py``."""
+    bh, s, hd = q.shape
+    _, lse = fa._forward(q, k, v, True, with_lse=True, sliding_window=window)
+    _, lse0 = fa._forward(q, k, v, True, with_lse=True)
+    row = dict(kernel_ms=time_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, lse, do, causal=True, sliding_window=window), 10),
+        kernel_no_window_ms=time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, lse0, do, causal=True), 10))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_bhsd_plain(*leaves, causal=True, sliding_window=window)
+    row["plain_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 2)
+    del out
+    pos = torch.arange(s, device="cuda")
+    keep = (pos[None, :] > pos[:, None] - window) & (pos[None, :] <= pos[:, None])
+    q4, k4, v4 = (t.view(1, -1, s, hd) for t in leaves)
+    out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep,
+                                                           enable_gqa=True)
+    row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        out, leaves, do.view(1, -1, s, hd), retain_graph=True), 5)
+    del out
+    row["bound_ms"], row["bound_by"] = bwd_bound_ms(bh, k.shape[0], s, hd, True, name,
+                                                    q.element_size(), window)
+    row["bound_no_window_ms"], _ = bwd_bound_ms(bh, k.shape[0], s, hd, True, name,
+                                                q.element_size())
+    row["kernel_tflops"] = bwd_flops(bh, s, hd, True, window) / row["kernel_ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    row["no_window_over_window"] = row["kernel_no_window_ms"] / row["kernel_ms"]
+    row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+    return row
+
+
+def phase_backward_window() -> tuple[dict, list]:
+    """Phase 8's windowed calls: both backward kernels under a sliding window
+    (``WINDOW_CASES``, f32 and bf16, through ``flash_attention_bhsd``'s
+    autograd Function) vs autograd of the plain version with the same
+    window, at phase 8's limits; a planted fault (the last query's dO row
+    zeroed in the plain run: a V row would not do, since at W = 1 every
+    p is 1 and dS = 0, so no gradient reads V); a window of S and 2S
+    bit-equal to none;
+    the tensor-core backward run twice for identical bits.  Times at
+    ``WINDOW_SHAPE``, keyed by dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    timed, rows = {}, []
+    for b, s, h, hkv, hd, window, masks in WINDOW_CASES:
+        for name, dt in dtypes.items():
+            q, k, v, do = (torch.randn((b * n, s, hd), generator=gen, device="cuda").to(dt)
+                           for n in (h, hkv, hkv, h))
+            for causal in masks:
+                fa.reset_launch_counts()
+                _, grads = attention_grads(fa.flash_attention_bhsd, q, k, v, do, causal, window)
+                by_mask = dict(fa.flash_attention_bhsd.mask_launches)
+                _, ref = attention_grads(fa.flash_attention_bhsd_plain, q, k, v, do, causal,
+                                         window)
+                torch.cuda.synchronize()
+                atol, rtol = TOL[name]
+                ratios = {g: limit_ratio(out.float(), r.float(), atol, rtol)
+                          for g, out, r in zip(("dq", "dk", "dv"), grads, ref)}
+                fwd, bwd = fa.kernel_variant(dt, hd), fa.backward_variant(dt, hd)
+                mask = fa.mask_name(causal, window, s)
+                row = dict(shape=[b, s, h, hkv, hd], window=window, dtype=name, causal=causal,
+                           forward_kernel=fwd, backward_kernel=bwd, mask_launches=by_mask,
+                           max_abs_err=max(float((g.float() - r.float()).abs().max())
+                                           for g, r in zip(grads, ref)),
+                           limit_ratio_by_grad=ratios, limit_ratio=max(ratios.values()),
+                           atol=atol, rtol=rtol)
+                row["ok"] = row["limit_ratio"] <= 1
+                bad_do = do.clone()
+                bad_do[:, s - 1] = 0
+                bad = attention_grads(fa.flash_attention_bhsd_plain, q, k, v, bad_do, causal,
+                                      window)[1]
+                del bad_do
+                row["fault_limit_ratio"] = max(limit_ratio(x.float(), r.float(), atol, rtol)
+                                               for x, r in zip(bad, ref))
+                row["fault_rejected"] = row["fault_limit_ratio"] > 1
+                del bad, ref
+                if bwd == "backward_wgmma":
+                    again = attention_grads(fa.flash_attention_bhsd, q, k, v, do, causal,
+                                            window)[1]
+                    row["two_calls_bit_equal"] = all(torch.equal(a, g)
+                                                     for a, g in zip(again, grads))
+                    del again
+                def out_and_grads(w):
+                    out, g = attention_grads(fa.flash_attention_bhsd, q, k, v, do, causal, w)
+                    return (out, *g)
+                none = out_and_grads(0)
+                row["window_ge_s_bit_equal"] = all(
+                    all(torch.equal(a, x) for a, x in zip(none, out_and_grads(w)))
+                    for w in (s, 2 * s))
+                del none
+                if (b, s, h, hkv, hd) == WINDOW_SHAPE and causal:
+                    row.update(window_backward_times(q, k, v, do, window, name))
+                    timed[name] = row
+                emit("backward_window", **row)
+                rows.append(row)
+                check(by_mask == {f"{fwd}/{mask}": 1, f"{bwd}/{mask}": 1},
+                      f"a windowed call under grad counted {by_mask}")
+                check(row["ok"], f"the windowed backward disagrees with autograd of the plain "
+                                 f"version: {row}")
+                check(row["fault_rejected"], f"the limit lets a zeroed V row through: {row}")
+                check(row.get("two_calls_bit_equal", True),
+                      f"two identical windowed backward calls differ: {row}")
+                check(row["window_ge_s_bit_equal"],
+                      f"a window of S or 2S does not give the bits of none: {row}")
+                del grads
+            del q, k, v, do
+    return timed, rows
 
 
 def scan_route(q, k, v, *, causal=True, chunk=512, sliding_window=0):
@@ -2328,8 +2673,102 @@ def phase_mixtral(cfg_full) -> dict:
     emit("mixtral", **row)
     check(masked[0] >= 1, "the decode steps never reach past the window")
     check(fa.flash_attention_bhsd.launches == 0, "mixtral decode launched a flash kernel")
-    del model, cache
+    del cache
+    row["long_prefill"] = mixtral_long_prefill(model)
+    del model
     return row
+
+
+def mixtral_long_prefill(model) -> dict:
+    """``prefill`` on ``MIXTRAL_LONG_PREFILL`` tokens, 8 windows long, twice:
+    every layer's attention through the windowed tensor-core kernel (one
+    ``wgmma/causal+window`` launch a layer, counted from 0 around each
+    call), finite logits, tokens/s of the second call; then a profiler
+    window over one more call."""
+    cfg = model.cfg
+    b, s = MIXTRAL_LONG_PREFILL
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    want = {"wgmma/causal+window": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    secs, by_mask = [], []
+    for _ in range(2):
+        reset_launches()
+        logits, sec, gc_sec = timed_call(lambda: serve.prefill(model, tokens))
+        secs.append(sec)
+        by_mask.append(dict(fa.flash_attention_bhsd.mask_launches))
+        check(tuple(logits.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+              f"mixtral 32k prefill logits {tuple(logits.shape)} not finite")
+        check(by_mask[-1] == want, f"mixtral 32k prefill launches {by_mask[-1]}, want {want}")
+    row = dict(arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, window=cfg.sliding_window,
+               dtype="bf16", seconds=secs, tokens_per_s=b * s / secs[-1],
+               mask_launches_per_call=by_mask, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # where the time goes: the top kernels and the windowed kernel's device time
+    row["profile"] = profile_window(lambda: serve.prefill(model, tokens), 1, top=8,
+                                    named="flash")
+    emit("mixtral_long_prefill", **row)
+    return row
+
+
+def phase_mixtral_window(cfg_full) -> dict:
+    """mixtral_8x7b's windowed cells beside phase 15's: the f32 check at
+    ``MIXTRAL_F32_LAYERS`` layers over ``WINDOW_SHAPE``'s length (prefill
+    logits through the CUDA-core windowed kernel vs the chunked scan, within
+    phase 5's 2e-3; capacity factor 16, so no token drops in either route)
+    and one bf16 training step at ``MIXTRAL_TRAIN_LAYERS`` layer on 1 x that
+    length through the windowed tensor-core forward and backward."""
+    s = WINDOW_SHAPE[1]
+    cfg = replace(cfg_full, n_layers=MIXTRAL_F32_LAYERS)
+    model = LM(cfg, param_dtype=torch.float32, capacity_factor=16.0, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen, device="cuda")
+    reset_launches()
+    logits = serve.prefill(model, tokens)
+    by_mask = dict(fa.flash_attention_bhsd.mask_launches)
+    original = transformer_mod.attn.gqa_attention
+    transformer_mod.attn.gqa_attention = scan_route
+    try:
+        reset_launches()
+        scan_logits = serve.prefill(model, tokens)
+        scan_launches = fa.flash_attention_bhsd.launches
+    finally:
+        transformer_mod.attn.gqa_attention = original
+    err = float((logits - scan_logits).abs().max())
+    f32 = dict(arch=cfg.name, layers=cfg.n_layers, batch=1, seq=s, window=cfg.sliding_window,
+               dtype="f32", max_abs_err=err, tol=2e-3, mask_launches=by_mask,
+               scan_route_flash_launches=scan_launches)
+    emit("mixtral_window_f32", **f32)
+    want = {"cuda_core/causal+window": cfg.n_layers}
+    check(by_mask == want, f"mixtral f32 prefill launches {by_mask}, want {want}")
+    check(scan_launches == 0, "the scan route launched a flash kernel")
+    check(err < 2e-3, f"mixtral f32 windowed prefill differs from the scan route: {f32}")
+    del model, logits, scan_logits
+    free()
+
+    cfg = replace(cfg_full, n_layers=MIXTRAL_TRAIN_LAYERS)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = Trainer(cfg, ShapeConfig("mixtral_window_train", s, 1, "train"),
+                          TrainerConfig(steps=1, ckpt_dir=ckpt_dir), param_dtype=torch.bfloat16,
+                          device="cuda")
+        params = trainer.params()
+        opt_state = adamw_init(params)
+        batch = trainer.batch(trainer.data.batch_at(0))
+        reset_launches()
+        params, opt_state, loss, secs, split, fb_peak = train_step_timed(
+            trainer, params, opt_state, batch)
+        launches = dict(fa.flash_attention_bhsd.variant_launches)
+        train_mask = dict(fa.flash_attention_bhsd.mask_launches)
+        del trainer, params, opt_state, batch
+    train = dict(arch=cfg.name, layers=cfg.n_layers, batch=1, seq=s, window=cfg.sliding_window,
+                 dtype="bf16 params, f32 AdamW state", loss=loss, step_s=secs, split_ms=split,
+                 train_tokens_per_s=s / secs, peak_fwd_bwd_gb=fb_peak / 1e9,
+                 launches=launches, mask_launches=train_mask)
+    emit("mixtral_window_train", **train)
+    check(np.isfinite(loss), f"mixtral windowed training loss is not finite: {train}")
+    want = {"wgmma/causal+window": cfg.n_layers, "backward_wgmma/causal+window": cfg.n_layers}
+    check(launches == flash_counts(wgmma=cfg.n_layers, backward_wgmma=cfg.n_layers) and
+          train_mask == want, f"mixtral windowed step launches {train_mask}, want {want}")
+    return dict(f32=f32, train=train)
 
 
 @contextlib.contextmanager
@@ -2909,18 +3348,25 @@ def phase_dryrun_steps(cfg_full, prefill_row, decode_row, train_rows) -> dict:
 
 def phase_production_dryrun() -> dict:
     """Both ``--production`` flags (the full-size llama3_8b cells' dry runs
-    on the 16 x 16 production mesh over a fake group of 256 ranks), each in
-    a process of its own (this one holds an NCCL group of one), the two
-    together; each must exit 0 and write its cell."""
+    on the 16 x 16 production mesh over a fake group of 256 ranks) and the
+    dry run of mixtral_8x7b's ``prefill_32k`` there (its windowed attention
+    through the kernel's meta branch), each in a process of its own (this
+    one holds an NCCL group of one), the three together; each must exit 0
+    and write an "ok" cell."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "",
            "OMP_NUM_THREADS": "1"}
-    runs = {"train": ("repro_torch.launch.train", "train_4k"),
-            "serve": ("repro_torch.launch.serve", "decode_32k")}
+    runs = {"train": (["repro_torch.launch.train", "--arch", "llama3_8b", "--production"],
+                      "llama3_8b", "train_4k"),
+            "serve": (["repro_torch.launch.serve", "--arch", "llama3_8b", "--production"],
+                      "llama3_8b", "decode_32k"),
+            "mixtral_prefill_32k": (["repro_torch.launch.dryrun", "--arch", "mixtral_8x7b",
+                                     "--shape", "prefill_32k", "--force"],
+                                    "mixtral_8x7b", "prefill_32k")}
     t0 = time.time()
     procs = {}
-    for name, (module, _) in runs.items():
+    for name, (argv, _, _) in runs.items():
         procs[name] = (subprocess.Popen(
-            [sys.executable, "-m", module, "--arch", "llama3_8b", "--production"], cwd=ROOT,
+            [sys.executable, "-m", *argv], cwd=ROOT,
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             time.perf_counter())
     def wait(proc, start):
@@ -2933,14 +3379,15 @@ def phase_production_dryrun() -> dict:
             waits = {name: pool.submit(wait, *pr) for name, pr in procs.items()}
         for name, (proc, _) in procs.items():
             log, wall_s = waits[name].result()
-            path = dryrun.cell_path("llama3_8b", runs[name][1], False)
+            path = dryrun.cell_path(*runs[name][1:], False)
             cell = (json.loads(path.read_text())
                     if path.exists() and path.stat().st_mtime >= t0 else {})
             out[name] = dict(rc=proc.returncode, wall_s=wall_s,
                              cell={k: cell.get(k) for k in (
-                                 "shape", "mesh", "status", "trace_s", "per_device_gib",
+                                 "arch", "shape", "mesh", "status", "trace_s", "per_device_gib",
                                  "argument_gib", "fits_hbm", "dominant", "useful_flop_frac",
-                                 "roofline_frac", "kernel_launches", "collectives")},
+                                 "roofline_frac", "kernel_launches", "flops_by_rate",
+                                 "collectives")},
                              log_tail=log[-1500:])
     finally:
         for proc, _ in procs.values():
@@ -2950,8 +3397,34 @@ def phase_production_dryrun() -> dict:
     emit("production_dryrun", **out)
     for name, row in out.items():
         check(row["rc"] == 0 and row["cell"]["status"] == "ok",
-              f"launch.{name} --production: rc {row['rc']}, cell {row['cell']}")
+              f"{runs[name][0][0]} ({name}): rc {row['rc']}, cell {row['cell']}")
     return out
+
+
+def phase_train_lm_example() -> dict:
+    """``examples/train_lm_torch.py --preset tiny`` on the card, as a
+    process of its own with its own time limit: it trains the tiny preset
+    through the port's Trainer, checkpoints and restart loop (f32 at hd 16:
+    the CUDA-core flash forward and backward); it must exit 0 with a
+    falling loss."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        argv = [sys.executable, str(ROOT / "examples" / "train_lm_torch.py"), "--preset", "tiny",
+                "--ckpt-dir", ckpt_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=TRAIN_LM_EXAMPLE_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+    found = re.search(r"loss: ([\d.]+) -> ([\d.]+) \(([\d.]+)s, (\d+) tok/s", proc.stdout)
+    row = dict(argv=["examples/train_lm_torch.py", *argv[2:4]], rc=proc.returncode, wall_s=wall_s,
+               stdout_tail=proc.stdout[-800:], stderr_tail=proc.stderr[-800:])
+    if found:
+        row.update(loss_first=float(found.group(1)), loss_last=float(found.group(2)),
+                   train_s=float(found.group(3)), tokens_per_s=int(found.group(4)))
+    emit("train_lm_example", **row)
+    check(proc.returncode == 0 and found is not None and row["loss_last"] < row["loss_first"],
+          f"examples/train_lm_torch.py on the card: {row}")
+    return row
 
 
 def phase_pipeline(cfg_full) -> dict:
@@ -3060,6 +3533,61 @@ def backward_row(main_row: dict, checks: list, variant: str, launches: int, path
     return row
 
 
+def window_entry(kind: str, variant: str, timed_row: dict, checks: list, launches: int,
+                 path: str, long: dict | None = None) -> dict:
+    """The kernels-line entry of one kernel under mixtral_8x7b's sliding
+    window: errors over the windowed rows of phase 2 (forward) or 8
+    (backward) it served, times at ``WINDOW_SHAPE`` beside the same call
+    without a window, SDPA with a boolean mask as the library call."""
+    key = "variant" if kind == "flash_attention_bhsd" else "backward_kernel"
+    mine = [r for r in checks if r[key] == variant]
+    row = {
+        "name": f"{kind}[{variant}]@mixtral_8x7b+window",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82",
+        "replaces_note": ("with the JAX model's sliding window "
+                          "(src/repro/models/attention.py:79), which that kernel lacks"),
+        "launches": launches,
+        "launches_counted_on": path,
+        "mask": "causal+window",
+        "window": MIXTRAL_WINDOW,
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "max_abs_err_by_dtype": {d: max(r["max_abs_err"] for r in mine if r["dtype"] == d)
+                                 for d in TOL if any(r["dtype"] == d for r in mine)},
+        "tol": {d: {"atol": a, "rtol": r} for d, (a, r) in TOL.items()},
+        "limit_ratio": max(r["limit_ratio"] for r in mine),
+        "fault_limit_ratio_min": min(r["fault_limit_ratio"] for r in mine),
+        "window_ge_s_bit_equal": all(r["window_ge_s_bit_equal"] for r in mine),
+        "checked": sorted({(*r["shape"], r["window"], r["causal"]) for r in mine}),
+        "ms": timed_row["kernel_ms"],
+        "plain_ms": timed_row["plain_ms"],
+        "bound_ms": timed_row["bound_ms"],
+        "bound_by": timed_row["bound_by"],
+        "library_ms": timed_row["library_ms"],
+        "library": "scaled_dot_product_attention with a boolean attn_mask of the window",
+        "ms_no_window": timed_row["kernel_no_window_ms"],
+        "bound_no_window_ms": timed_row["bound_no_window_ms"],
+        "bound_share": timed_row["bound_share"],
+        "kernel_over_library": timed_row["kernel_over_library"],
+        "shape": timed_row["shape"],
+        "dtype": timed_row["dtype"],
+    }
+    if long is not None:
+        row.update({f"at_{long['shape'][1]}_{k}": long[k] for k in (
+            "max_abs_err", "limit_ratio", "fault_limit_ratio", "kernel_ms",
+            "kernel_no_window_ms", "plain_ms", "plain_block_rows", "bound_ms",
+            "bound_no_window_ms", "bound_share")})
+        row["max_abs_err"] = max(row["max_abs_err"], long["max_abs_err"])
+        row["max_abs_err_by_dtype"]["bf16"] = max(row["max_abs_err_by_dtype"]["bf16"],
+                                                  long["max_abs_err"])
+        row["limit_ratio"] = max(row["limit_ratio"], long["limit_ratio"])
+        row["fault_limit_ratio_min"] = min(row["fault_limit_ratio_min"],
+                                           long["fault_limit_ratio"])
+        row["checked"].append((*long["shape"], long["window"], long["causal"]))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; it needs an NVIDIA card",
@@ -3074,6 +3602,9 @@ def main() -> int:
     wkv_timed, wkv_checks = phase_wkv()
     bwd_timed, bwd_checks = phase_backward()
     wkv_bwd_timed, wkv_bwd_checks = phase_wkv_backward()
+    # phases 2 and 8's windowed calls, after the WKV phases' profiler windows
+    window_timed, window_checks = phase_kernel_window()
+    bwd_window_timed, bwd_window_checks = phase_backward_window()
 
     cfg = get_config("llama3_8b")
     model = LM(cfg, seed=SEED, device="cuda")        # bf16, full depth
@@ -3120,7 +3651,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_gradients(olmoe_cfg)
     torch.cuda.empty_cache()
-    phase_mixtral(get_config("mixtral_8x7b"))
+    mixtral = phase_mixtral(get_config("mixtral_8x7b"))
+    free()
+    mixtral_window = phase_mixtral_window(get_config("mixtral_8x7b"))
     free()
 
     jamba_cfg = get_config("jamba_15_large")
@@ -3165,6 +3698,7 @@ def main() -> int:
     production = phase_production_dryrun()
     pipeline = phase_pipeline(cfg)
     free()
+    phase_train_lm_example()
 
     olmoe, jamba_id, vision_id, seamless = ("olmoe_1b_7b", "jamba_15_large",
                                             "llama32_vision_90b", "seamless_m4t_v2")
@@ -3243,8 +3777,29 @@ def main() -> int:
     entry("flash_attention_bhsd[wgmma]")["launches_predicted_by_dry_run"] = {
         f"{name} (mesh of one)": row["predicted_launches"] for name, row in dry_steps.items()}
     entry("flash_attention_bhsd[wgmma]")["launches_predicted_by_production_dry_run"] = {
-        f"{name} (llama3_8b, 16 x 16, per rank)": row["cell"]["kernel_launches"]
-        for name, row in production.items()}
+        f"{name} ({row['cell']['arch']} {row['cell']['shape']}, 16 x 16, per rank)":
+            row["cell"]["kernel_launches"] for name, row in production.items()}
+    # the windowed calls: mixtral_8x7b's 32k prefill, its f32 check, its
+    # training step
+    long_prefill = mixtral["long_prefill"]["mask_launches_per_call"][-1]
+    kernels += [
+        window_entry("flash_attention_bhsd", "wgmma", window_timed["bf16"], window_checks,
+                     long_prefill["wgmma/causal+window"],
+                     f"mixtral_8x7b's prefill of {MIXTRAL_LONG_PREFILL[0]} x "
+                     f"{MIXTRAL_LONG_PREFILL[1]} ({MIXTRAL_LAYERS} layers, one call)",
+                     long=window_timed["long"]),
+        window_entry("flash_attention_bhsd", "cuda_core", window_timed["f32"], window_checks,
+                     mixtral_window["f32"]["mask_launches"]["cuda_core/causal+window"],
+                     f"mixtral_8x7b's f32 prefill of 1 x {WINDOW_SHAPE[1]} "
+                     f"({MIXTRAL_F32_LAYERS} layers) of phase 15"),
+        window_entry("flash_attention_bwd", "backward_wgmma", bwd_window_timed["bf16"],
+                     bwd_window_checks,
+                     mixtral_window["train"]["mask_launches"]["backward_wgmma/causal+window"],
+                     f"one mixtral_8x7b train step ({MIXTRAL_TRAIN_LAYERS} layer, 1 x "
+                     f"{WINDOW_SHAPE[1]})"),
+        window_entry("flash_attention_bwd", "backward", bwd_window_timed["f32"],
+                     bwd_window_checks, 0,
+                     "no main path (phase 8 only): no path here trains with a window in f32")]
     entry("flash_attention_bwd[backward_wgmma]")["launches_on_step_paths"] = {
         "steps_train (one step)": steps_train["grad_accum_1"]["launches"][-1]["backward_wgmma"],
         "steps_train grad_accum 2 (one step)":

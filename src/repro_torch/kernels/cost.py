@@ -16,7 +16,7 @@ Nothing here touches a card.
 from __future__ import annotations
 
 __all__ = ["PEAK_FLOPS", "PEAK_BYTES", "HBM_BYTES", "LINK_BYTES",
-           "attention_flops", "attention_bytes", "attention_bound_ms",
+           "attention_pairs", "attention_flops", "attention_bytes", "attention_bound_ms",
            "bwd_flops", "bwd_bytes", "bwd_bound_ms",
            "wkv_flops", "wkv_bytes", "wkv_bound_ms",
            "wkv_bwd_flops", "wkv_bwd_bytes", "wkv_bwd_bound",
@@ -42,10 +42,20 @@ def _bound(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 # ---------------------------------------------------------------------- #
 # flash attention (kernels/flash_attention.py)
 # ---------------------------------------------------------------------- #
-def attention_flops(bh, s, hd, causal) -> int:
+def attention_pairs(s, causal, sliding_window=0) -> int:
+    """The (query, key) pairs a mask keeps: key k for query q if k <= q when
+    causal and k > q - W when ``sliding_window`` W > 0 (a window of at
+    least S keeps every pair)."""
+    w = sliding_window if 0 < sliding_window < s else 0
+    if causal:
+        return w * (w + 1) // 2 + (s - w) * w if w else s * (s + 1) // 2
+    # row q loses its keys 0 .. q - W: sum over q of max(0, q - W + 1)
+    return s * s - (s - w) * (s - w + 1) // 2 if w else s * s
+
+
+def attention_flops(bh, s, hd, causal, sliding_window=0) -> int:
     """The algorithm's operations: two products over the unmasked score pairs."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    return 4 * hd * pairs * bh
+    return 4 * hd * attention_pairs(s, causal, sliding_window) * bh
 
 
 def attention_bytes(bh, bh_kv, s, hd, elem_bytes) -> int:
@@ -53,17 +63,18 @@ def attention_bytes(bh, bh_kv, s, hd, elem_bytes) -> int:
     return (2 * bh + 2 * bh_kv) * s * hd * elem_bytes
 
 
-def attention_bound_ms(bh, bh_kv, s, hd, causal, dtype, elem_bytes) -> tuple[float, str]:
+def attention_bound_ms(bh, bh_kv, s, hd, causal, dtype, elem_bytes,
+                       sliding_window=0) -> tuple[float, str]:
     """Least time for the work: the unmasked score pairs' two products over
     the peak rate, or q/k/v read once and o written once over HBM."""
-    return _bound(attention_flops(bh, s, hd, causal),
+    return _bound(attention_flops(bh, s, hd, causal, sliding_window),
                   attention_bytes(bh, bh_kv, s, hd, elem_bytes), dtype)
 
 
-def bwd_flops(bh, s, hd, causal) -> int:
+def bwd_flops(bh, s, hd, causal, sliding_window=0) -> int:
     """The backward's operations: five products (scores, dP, dV, dK, dQ)
     over the unmasked score pairs, 2.5x the forward's two."""
-    return attention_flops(bh, s, hd, causal) * 5 // 2
+    return attention_flops(bh, s, hd, causal, sliding_window) * 5 // 2
 
 
 def bwd_bytes(bh, bh_kv, s, hd, elem_bytes) -> int:
@@ -71,10 +82,12 @@ def bwd_bytes(bh, bh_kv, s, hd, elem_bytes) -> int:
     return (3 * bh + 4 * bh_kv) * s * hd * elem_bytes + 4 * bh * s
 
 
-def bwd_bound_ms(bh, bh_kv, s, hd, causal, dtype, elem_bytes) -> tuple[float, str]:
+def bwd_bound_ms(bh, bh_kv, s, hd, causal, dtype, elem_bytes,
+                 sliding_window=0) -> tuple[float, str]:
     """Least time for the backward's work: its operations over the peak
     rate of the input type, or :func:`bwd_bytes` over HBM."""
-    return _bound(bwd_flops(bh, s, hd, causal), bwd_bytes(bh, bh_kv, s, hd, elem_bytes), dtype)
+    return _bound(bwd_flops(bh, s, hd, causal, sliding_window),
+                  bwd_bytes(bh, bh_kv, s, hd, elem_bytes), dtype)
 
 
 # ---------------------------------------------------------------------- #

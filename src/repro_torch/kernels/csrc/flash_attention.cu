@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_bhsd, body _kernel): softmax(q k^T * hd^-0.5) v over
 // q [BHq, S, hd] and k/v [BHkv, S, hd], causal or full, GQA by mapping
-// query head bh to kv head bh / group without repeating K/V.  The running
+// query head bh to kv head bh / group without repeating K/V, with an
+// optional sliding window (below).  The running
 // max, sum and accumulator stay in f32, masked scores get the TPU kernel's
 // -1e30, and the output is cast to the input type.  Two kernels compute
 // that function; the wrapper picks one by dtype and hd, and neither falls
@@ -75,6 +76,24 @@
 //   rows' (m + log2 l) * ln 2: the log-sum-exp back in natural units.
 // * Heaviest q tiles are launched first.
 //
+// The sliding window (every kernel of this file, forward and backward).
+// `window` W > 0 keeps key k for query q only if k > q - W, the JAX
+// model's mask (src/repro/models/attention.py:79), independently of the
+// causal flag: without it every later key stays.  W = 0 is no window.
+// Every kernel is instantiated with and without a window (kWindow; the
+// latter compiles to the code that had no window argument), and a window
+// of at least S masks nothing, so the entry points launch the
+// instantiation without one: the same code, tiles and bits as no window.
+// Tiles that lie wholly outside every row's window are skipped
+// (window_first_tile / window_end_tile); only a tile that crosses the
+// window's lower edge for some row of its warpgroup (or block) is masked
+// element by element.  A row whose first visited tile is wholly outside
+// its own window sees only -1e30 scores there: p = exp(0) = 1 adds finite
+// garbage to its sums, which the next tile's correction exp(-1e30 - m)
+// multiplies by exactly 0, as in the JAX model's scan.  Every row keeps
+// one key (its own when causal, key S - 1 otherwise), so no lse is -inf
+// and no NaN arises.
+//
 // The CUDA-core kernel.
 // * The TPU kernel's sequential K axis becomes a loop inside the block:
 //   one block of 256 threads owns one (bh, 64-row q tile) and walks the
@@ -86,9 +105,10 @@
 //   fit on an SM.  Rows have one float of padding, so the 16 threads of
 //   a half-warp read 16 different banks and the two rows a warp reads
 //   from the q and score tiles lie in different banks.
-// * Masking: columns >= S (the ragged tail) and, when causal, columns >
-//   row get -1e30 before the softmax, the TPU kernel's constant.  Tiles
-//   wholly above the diagonal are skipped: there the TPU kernel adds
+// * Masking: columns >= S (the ragged tail), when causal columns > row,
+//   and with a window columns <= row - W get -1e30 before the softmax, the
+//   TPU kernel's constant.  Tiles wholly above the diagonal, and those
+//   wholly before the window of the block's first row, are skipped: there the TPU kernel adds
 //   exactly zero (p = exp(-1e30 - m) = 0, corr = 1).  Tail rows and
 //   columns are loaded as zeros and tail rows are never stored.
 // * Causal work grows with the q tile index, so the heaviest tiles are
@@ -105,6 +125,23 @@ constexpr int kBK = 64;        // k/v columns per tile
 constexpr int kThreads = 256;  // 16 x 16 thread grid over a 64 x 64 score tile
 constexpr float kNegInf = -1e30f;
 
+// The first `tile`-wide key tile that holds a key inside the window of a
+// query row from q_first on: key k is kept for row q only if k > q - window.
+__host__ __device__ __forceinline__ int window_first_tile(int q_first, int window, int tile) {
+  return window > 0 && q_first - window + 1 > 0 ? (q_first - window + 1) / tile : 0;
+}
+
+// One past the last `tile`-row query tile (of n) that keeps some key at or
+// before k_last: row q keeps key k only if q < k + window.
+__host__ __device__ __forceinline__ int window_end_tile(int k_last, int window, int tile, int n) {
+  return window > 0 ? min(n, (k_last + window - 1) / tile + 1) : n;
+}
+
+// Whether key `col` lies in the window of query `row` (no window: always).
+__device__ __forceinline__ bool in_window(int col, int row, int window) {
+  return window == 0 || col > row - window;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -120,13 +157,14 @@ struct Layout {
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int seq, int group, float scale, int causal) {
+                 int seq, int group, float scale, int causal, int window) {
   using L = Layout<HD>;
   constexpr int kCols = HD / 16;         // output columns per thread
+  if (!kWindow) window = 0;
   extern __shared__ float smem[];
   float* qs = smem;                      // [kBQ][kQLd]     q * scale
   float* kvs = qs + kBQ * L::kQLd;       // [kBK][kKvLd]    K tile, then V tile
@@ -163,7 +201,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int n_k = (seq + kBK - 1) / kBK;
   if (causal) n_k = min(n_k, (q0 + kBQ - 1) / kBK + 1);
 
-  for (int kt = 0; kt < n_k; ++kt) {
+  for (int kt = window_first_tile(q0, window, kBK); kt < n_k; ++kt) {
     const int k0 = kt * kBK;
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, d = i % HD, col = k0 + r;
@@ -196,7 +234,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const int col = k0 + c;
-        const bool keep = col < seq && (!causal || col <= q0 + r);
+        const bool keep = col < seq && (!causal || col <= q0 + r) && in_window(col, q0 + r, window);
         ss[r * L::kSLd + c] = keep ? s[i][j] : kNegInf;
       }
     }
@@ -271,29 +309,30 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kWindow>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                   int bh_kv, int seq, float scale, int causal, cudaStream_t stream) {
+                   int bh_kv, int seq, float scale, int causal, int window, cudaStream_t stream) {
   const size_t bytes = Layout<HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD, kWindow>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<T, HD, kWindow><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, seq, bh / bh_kv, scale, causal);
+      static_cast<T*>(o), lse, seq, bh / bh_kv, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kWindow>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                        int bh_kv, int seq, int hd, float scale, int causal, cudaStream_t stream) {
+                        int bh_kv, int seq, int hd, float scale, int causal, int window,
+                        cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, stream);
+    case 16: return launch<T, 16, kWindow>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, window, stream);
+    case 32: return launch<T, 32, kWindow>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, window, stream);
+    case 64: return launch<T, 64, kWindow>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, window, stream);
+    case 128: return launch<T, 128, kWindow>(q, k, v, o, lse, bh, bh_kv, seq, scale, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -481,14 +520,16 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   lo = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, int seq, int group, float scale_log2, int causal) {
+                       float* __restrict__ lse, int seq, int group, float scale_log2, int causal,
+                       int window) {
   using L = TcSmem<HD>;
   constexpr int kPanels = HD / kPanelCols;
+  if (!kWindow) window = 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;   // the swizzle atom's alignment
   const uint32_t q_full = base + L::kBar;
@@ -499,8 +540,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBM;
-  int n_kv = (seq + kTcBN - 1) / kTcBN;
-  if (causal) n_kv = min(n_kv, (q0 + kTcBM - 1) / kTcBN + 1);
+  int end = (seq + kTcBN - 1) / kTcBN;
+  if (causal) end = min(end, (q0 + kTcBM - 1) / kTcBN + 1);
+  const int first = window_first_tile(q0, window, kTcBN);   // key tile of ring slot 0
+  const int n_kv = end - first;
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -525,12 +568,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(empty + 8 * s, ((j / kTcStages) & 1) ^ 1);   // the first round passes
         const uint32_t kd = base + L::kK + s * L::kTileBytes;
         const uint32_t vd = base + L::kV + s * L::kTileBytes;
+        const int k0 = (first + j) * kTcBN;
         mbar_expect_tx(k_full + 8 * s, L::kTileBytes);
         for (int p = 0; p < kPanels; ++p)
-          tma_load(kd + p * kTcBN * kRowBytes, &tm_k, k_full + 8 * s, p * kPanelCols, j * kTcBN, kvh);
+          tma_load(kd + p * kTcBN * kRowBytes, &tm_k, k_full + 8 * s, p * kPanelCols, k0, kvh);
         mbar_expect_tx(v_full + 8 * s, L::kTileBytes);
         for (int p = 0; p < kPanels; ++p)
-          tma_load(vd + p * kTcBN * kRowBytes, &tm_v, v_full + 8 * s, p * kPanelCols, j * kTcBN, kvh);
+          tma_load(vd + p * kTcBN * kRowBytes, &tm_v, v_full + 8 * s, p * kPanelCols, k0, kvh);
       }
     }
     return;
@@ -544,6 +588,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row_b = row_a + 8;
   const int col = 2 * (lane % 4);
   const uint32_t q_tile = base + wg * 64 * kRowBytes;
+  // the warpgroup's last row that is stored: a tile with a key at or
+  // before last_row - window crosses the window's lower edge
+  const int last_row = min(q0 + wg * 64 + 63, seq - 1);
 
   float acc[HD / 2];                       // O, f32
 #pragma unroll
@@ -571,15 +618,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait_all();
     fence_regs(s);
 
-    const int k0 = j * kTcBN;
+    const int k0 = (first + j) * kTcBN;
 #pragma unroll
     for (int i = 0; i < kTcBN / 2; ++i) s[i] *= scale_log2;
-    if (k0 + kTcBN > seq || (causal && k0 + kTcBN - 1 > q0 + wg * 64)) {
+    if (k0 + kTcBN > seq || (causal && k0 + kTcBN - 1 > q0 + wg * 64) ||
+        (window > 0 && k0 + window <= last_row)) {
 #pragma unroll
       for (int i = 0; i < kTcBN / 2; ++i) {
         const int c = k0 + 8 * (i / 4) + col + (i & 1);
         const int r = (i & 2) ? row_b : row_a;
-        if (c >= seq || (causal && c > r)) s[i] = kNegInf;
+        if (c >= seq || (causal && c > r) || !in_window(c, r, window)) s[i] = kNegInf;
       }
     }
 
@@ -692,9 +740,10 @@ bool tensor_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int hea
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                         int bh_kv, int seq, float scale, int causal, cudaStream_t stream) {
+                         int bh_kv, int seq, float scale, int causal, int window,
+                         cudaStream_t stream) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -703,54 +752,71 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
       !tensor_map(encode, &tm_v, v, bh_kv, seq, HD, kTcBN))
     return cudaErrorInvalidValue;
   const size_t bytes = TcSmem<HD>::kAlloc;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HD, kWindow>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq + kTcBM - 1) / kTcBM);
   // scores are scaled into log2 units so that exp2 gives exp
-  flash_fwd_wgmma_kernel<HD><<<grid, kTcThreads, bytes, stream>>>(
+  flash_fwd_wgmma_kernel<HD, kWindow><<<grid, kTcThreads, bytes, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, seq, bh / bh_kv,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [bh, seq, hd], k/v [bh_kv, seq, hd], o [bh, seq, hd], all contiguous, on
-// one device, of one type (is_bf16 ? bf16 : f32); lse null or f32 [bh, seq].
-// The CUDA-core kernel: any of those types at hd 16, 32, 64 or 128.
-// Launches on `stream` and does not synchronise; returns the cudaError_t of
-// the launch.
+// one device, of one type (is_bf16 ? bf16 : f32); lse null or f32 [bh, seq];
+// window >= 0 (0, or at least seq: none).  The CUDA-core kernel: any of
+// those types at hd 16, 32, 64 or 128.  Launches on `stream` and does not
+// synchronise; returns the cudaError_t of the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int bh, int bh_kv, int seq, int hd,
-                                         int is_bf16, int causal, float scale, void* stream) {
-  if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 || (seq + kBQ - 1) / kBQ > 65535)
+                                         int is_bf16, int causal, int window, float scale,
+                                         void* stream) {
+  if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 || (seq + kBQ - 1) / kBQ > 65535 ||
+      window < 0)
     return cudaErrorInvalidValue;
+  if (window >= seq) window = 0;          // masks no key: the kernel without a window
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, l, bh, bh_kv, seq, hd, scale, causal, s);
-  return dispatch_hd<float>(q, k, v, o, l, bh, bh_kv, seq, hd, scale, causal, s);
+    return window ? dispatch_hd<__nv_bfloat16, true>(q, k, v, o, l, bh, bh_kv, seq, hd, scale,
+                                                      causal, window, s)
+                  : dispatch_hd<__nv_bfloat16, false>(q, k, v, o, l, bh, bh_kv, seq, hd, scale,
+                                                       causal, 0, s);
+  return window ? dispatch_hd<float, true>(q, k, v, o, l, bh, bh_kv, seq, hd, scale, causal,
+                                           window, s)
+                : dispatch_hd<float, false>(q, k, v, o, l, bh, bh_kv, seq, hd, scale, causal, 0,
+                                            s);
 }
 
 // The same arguments; the tensor-core kernel, which takes bf16 (is_bf16 = 1)
 // at hd 64 or 128 with 16-byte-aligned q, k and v, and nothing else.
 extern "C" int repro_flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
                                                void* o, void* lse, int bh, int bh_kv, int seq,
-                                               int hd, int is_bf16, int causal, float scale,
-                                               void* stream) {
+                                               int hd, int is_bf16, int causal, int window,
+                                               float scale, void* stream) {
   if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 ||
-      (seq + kTcBM - 1) / kTcBM > 65535 || !is_bf16)
+      (seq + kTcBM - 1) / kTcBM > 65535 || !is_bf16 || window < 0)
     return cudaErrorInvalidValue;
+  if (window >= seq) window = 0;          // masks no key: the kernel without a window
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return cudaErrorMisalignedAddress;   // TMA reads from 16-byte-aligned bases only
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 64: return launch_wgmma<64>(q, k, v, o, l, bh, bh_kv, seq, scale, causal, s);
-    case 128: return launch_wgmma<128>(q, k, v, o, l, bh, bh_kv, seq, scale, causal, s);
+    case 64:
+      return window ? launch_wgmma<64, true>(q, k, v, o, l, bh, bh_kv, seq, scale, causal,
+                                             window, s)
+                    : launch_wgmma<64, false>(q, k, v, o, l, bh, bh_kv, seq, scale, causal, 0, s);
+    case 128:
+      return window ? launch_wgmma<128, true>(q, k, v, o, l, bh, bh_kv, seq, scale, causal,
+                                              window, s)
+                    : launch_wgmma<128, false>(q, k, v, o, l, bh, bh_kv, seq, scale, causal, 0,
+                                               s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -793,10 +859,12 @@ extern "C" int repro_flash_attention_wgmma_smem_bytes(int hd) {
 //   backward does not read O at all.
 // * Step 1, flash_bwd_dq_kernel: one block of 256 threads per (q head,
 //   64-row q tile), heaviest tiles first; it keeps q and dO, walks the
-//   64-key K/V tiles (up to the diagonal when causal), and writes dQ and D.
+//   64-key K/V tiles (up to the diagonal when causal, from the window's
+//   first tile with one), and writes dQ and D.
 // * Step 2, flash_bwd_dkdv_kernel: one block per (kv head, 64-key tile),
 //   keeping K and V; it walks every q tile of every query head of its
-//   group (from the diagonal on when causal), so GQA's sum over the group
+//   group (from the diagonal on when causal, up to the last row whose
+//   window reaches its keys with one), so GQA's sum over the group
 //   happens in the block.  No atomics in either step: two identical calls
 //   give bit-identical gradients.
 // * The thread layout is the CUDA-core forward's: a 16 x 16 grid over a
@@ -866,14 +934,15 @@ __device__ __forceinline__ void two_products(const float* a1, const float* b1, c
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ delta, T* __restrict__ dq, int seq, int group,
-                    float scale, int causal) {
+                    float scale, int causal, int window) {
   using L = BwdLayout<HD>;
   constexpr int kCols = HD / 16;
+  if (!kWindow) window = 0;
   extern __shared__ float smem[];
   float* qs = smem;                      // [64][kLd] q
   float* dos = qs + L::kTile;            // [64][kLd] dO
@@ -906,7 +975,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   int n_k = (seq + kBT - 1) / kBT;
   if (causal) n_k = min(n_k, (q0 + kBT - 1) / kBT + 1);
-  for (int kt = 0; kt < n_k; ++kt) {
+  for (int kt = window_first_tile(q0, window, kBT); kt < n_k; ++kt) {
     const int k0 = kt * kBT;
     load_tile<T, HD>(ks, kp, k0, seq);
     load_tile<T, HD>(vs, vp, k0, seq);
@@ -920,7 +989,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, col = k0 + c;
-        const bool keep = row < seq && col < seq && (!causal || col <= row);
+        const bool keep = row < seq && col < seq && (!causal || col <= row) &&
+                          in_window(col, row, window);
         const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         const float pdp = p * dp[i][j];
         dsum[i] += pdp;
@@ -971,14 +1041,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      int seq, int group, float scale, int causal) {
+                      int seq, int group, float scale, int causal, int window) {
   using L = BwdLayout<HD>;
   constexpr int kCols = HD / 16;
+  if (!kWindow) window = 0;
   extern __shared__ float smem[];
   float* ks = smem;                      // [64][kLd] K tile of this block
   float* vs = ks + L::kTile;             // [64][kLd] V tile of this block
@@ -992,7 +1063,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int bkv = blockIdx.x;
-  const int k0 = blockIdx.y * kBT;       // key tile 0 has the most q tiles under a causal mask
+  // key tile 0 has the most q tiles under a causal mask alone; under a
+  // window most key tiles see the same W rows, so the order stays simple
+  const int k0 = blockIdx.y * kBT;
   const size_t head = static_cast<size_t>(seq) * HD;
   load_tile<T, HD>(ks, k + bkv * head, k0, seq);
   load_tile<T, HD>(vs, v + bkv * head, k0, seq);
@@ -1003,11 +1076,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
-  const int n_q = (seq + kBT - 1) / kBT;
   const int first = causal ? k0 / kBT : 0;
+  const int end = window_end_tile(k0 + kBT - 1, window, kBT, (seq + kBT - 1) / kBT);
   for (int h = 0; h < group; ++h) {
     const int bh = bkv * group + h;
-    for (int qt = first; qt < n_q; ++qt) {
+    for (int qt = first; qt < end; ++qt) {
       const int q0 = qt * kBT;
       __syncthreads();                   // the last tile's readers are done
       load_tile<T, HD>(qs, q + bh * head, q0, seq);
@@ -1027,7 +1100,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j, col = k0 + c;
-          const bool keep = row < seq && col < seq && (!causal || col <= row);
+          const bool keep = row < seq && col < seq && (!causal || col <= row) &&
+                            in_window(col, row, window);
           const float p = keep ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
           ps[r * L::kSLd + c] = p;
           dss[r * L::kSLd + c] = p * (dp[i][j] - d_s[r]);
@@ -1075,15 +1149,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kWindow>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, float* delta, void* dq, void* dk, void* dv, int bh,
-                       int bh_kv, int seq, float scale, int causal, cudaStream_t stream) {
+                       int bh_kv, int seq, float scale, int causal, int window,
+                       cudaStream_t stream) {
   const int bytes = static_cast<int>(BwdLayout<HD>::kBytes);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, HD, kWindow>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, HD, kWindow>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int tiles = (seq + kBT - 1) / kBT;
@@ -1091,27 +1166,27 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  flash_bwd_dq_kernel<T, HD><<<dim3(bh, tiles), kThreads, bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), seq, bh / bh_kv, scale, causal);
+  flash_bwd_dq_kernel<T, HD, kWindow><<<dim3(bh, tiles), kThreads, bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), seq, bh / bh_kv, scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // same stream: step 2 reads the D that step 1 wrote
-  flash_bwd_dkdv_kernel<T, HD><<<dim3(bh_kv, tiles), kThreads, bytes, stream>>>(
+  flash_bwd_dkdv_kernel<T, HD, kWindow><<<dim3(bh_kv, tiles), kThreads, bytes, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), seq, bh / bh_kv,
-      scale, causal);
+      scale, causal, window);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kWindow>
 cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, float* delta, void* dq, void* dk, void* dv, int bh,
-                         int bh_kv, int seq, int hd, float scale, int causal,
+                         int bh_kv, int seq, int hd, float scale, int causal, int window,
                          cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_bwd<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, stream);
-    case 32: return launch_bwd<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, stream);
-    case 64: return launch_bwd<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, stream);
-    case 128: return launch_bwd<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, stream);
+    case 16: return launch_bwd<T, 16, kWindow>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, window, stream);
+    case 32: return launch_bwd<T, 32, kWindow>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, window, stream);
+    case 64: return launch_bwd<T, 64, kWindow>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, window, stream);
+    case 128: return launch_bwd<T, 128, kWindow>(q, k, v, dout, lse, delta, dq, dk, dv, bh, bh_kv, seq, scale, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1121,26 +1196,32 @@ cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void
 // The gradient of repro_flash_attention_fwd's function.  q, dout, dq
 // [bh, seq, hd]; k, v, dk, dv [bh_kv, seq, hd]; all contiguous, on one
 // device, of one type (is_bf16 ? bf16 : f32); lse f32 [bh, seq] from a
-// forward call on the same q, k, v and causal flag; delta f32 [bh, seq]
-// scratch, written with D.  hd 16, 32, 64 or 128, any seq >= 1.  Launches
-// two kernels on `stream` and does not synchronise; returns the cudaError_t
-// of the launches.
+// forward call on the same q, k, v, causal flag and window; delta f32
+// [bh, seq] scratch, written with D.  hd 16, 32, 64 or 128, any seq >= 1,
+// window >= 0 (0, or at least seq: none).  Launches two kernels on
+// `stream` and does not synchronise; returns the cudaError_t of the
+// launches.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, void* delta,
                                          void* dq, void* dk, void* dv, int bh, int bh_kv,
-                                         int seq, int hd, int is_bf16, int causal, float scale,
-                                         void* stream) {
+                                         int seq, int hd, int is_bf16, int causal, int window,
+                                         float scale, void* stream) {
   if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 || (seq + kBT - 1) / kBT > 65535 ||
-      lse == nullptr || delta == nullptr)
+      lse == nullptr || delta == nullptr || window < 0)
     return cudaErrorInvalidValue;
+  if (window >= seq) window = 0;          // masks no key: the kernels without a window
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   if (is_bf16)
-    return dispatch_bwd<__nv_bfloat16>(q, k, v, dout, l, d, dq, dk, dv, bh, bh_kv, seq, hd,
-                                       scale, causal, s);
-  return dispatch_bwd<float>(q, k, v, dout, l, d, dq, dk, dv, bh, bh_kv, seq, hd, scale, causal,
-                             s);
+    return window ? dispatch_bwd<__nv_bfloat16, true>(q, k, v, dout, l, d, dq, dk, dv, bh, bh_kv,
+                                                       seq, hd, scale, causal, window, s)
+                  : dispatch_bwd<__nv_bfloat16, false>(q, k, v, dout, l, d, dq, dk, dv, bh,
+                                                        bh_kv, seq, hd, scale, causal, 0, s);
+  return window ? dispatch_bwd<float, true>(q, k, v, dout, l, d, dq, dk, dv, bh, bh_kv, seq, hd,
+                                            scale, causal, window, s)
+                : dispatch_bwd<float, false>(q, k, v, dout, l, d, dq, dk, dv, bh, bh_kv, seq, hd,
+                                             scale, causal, 0, s);
 }
 
 // Dynamic shared memory of the backward kernels at `hd`, in bytes (0 if
@@ -1205,7 +1286,8 @@ extern "C" int repro_flash_attention_bwd_smem_bytes(int hd) {
 //   writes each row's {lse log2(e), D} to `rowstat` for the second kernel.
 // * flash_bwd_dkdv_wgmma_kernel: one block per (kv head, key tile), keys
 //   first to last, so that under a causal mask the heaviest blocks start
-//   first.  K and V are loaded once; 64-row q and dO tiles of every query
+//   first (under a window most blocks see the same W rows: the order
+//   stays).  K and V are loaded once; 64-row q and dO tiles of every query
 //   head of the GQA group stream through a three-stage ring (from the
 //   diagonal on when causal), so the group's sum stays in the block.
 //   S^T = K.q^T and dP^T = V.dO^T put the keys on wgmma's M, so P^T and
@@ -1289,7 +1371,7 @@ __device__ __forceinline__ float mastered(const float4* master, int i4, int e) {
   return e == 0 ? m.x : e == 1 ? m.y : e == 2 ? m.z : m.w;
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -1297,9 +1379,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
                           const float* __restrict__ lse, float2* __restrict__ rowstat,
                           __nv_bfloat16* __restrict__ dq, int seq, int group, float scale,
-                          int causal) {
+                          int causal, int window) {
   using L = DqSmem<HD>;
   constexpr int kPanels = HD / kPanelCols;
+  if (!kWindow) window = 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   float4* master = reinterpret_cast<float4*>(smem_raw + (base - smem_addr(smem_raw)) + L::kMaster);
@@ -1311,8 +1394,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBM;
-  int n_kv = (seq + kDqBN - 1) / kDqBN;
-  if (causal) n_kv = min(n_kv, (q0 + kTcBM - 1) / kDqBN + 1);
+  int end = (seq + kDqBN - 1) / kDqBN;
+  if (causal) end = min(end, (q0 + kTcBM - 1) / kDqBN + 1);
+  const int first = window_first_tile(q0, window, kDqBN);   // key tile of ring slot 0
+  const int n_kv = end - first;
 
   if (tid == 0) {
     mbar_init(qd_full, 1);
@@ -1337,7 +1422,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // two sweeps over the key tiles: D, then dQ
       for (int j = 0; j < 2 * n_kv; ++j) {
         const int s = j % kDqStages;
-        const int k0 = (j % n_kv) * kDqBN;
+        const int k0 = (first + j % n_kv) * kDqBN;
         mbar_wait(empty + 8 * s, ((j / kDqStages) & 1) ^ 1);   // the first round passes
         const uint32_t kd = base + L::kK + s * L::kTileBytes;
         const uint32_t vd = base + L::kV + s * L::kTileBytes;
@@ -1366,6 +1451,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float* lp = lse + static_cast<size_t>(bh) * seq;
   const float lse_a = row_a < seq ? lp[row_a] * kLog2e : 0.f;
   const float lse_b = row_b < seq ? lp[row_b] * kLog2e : 0.f;
+  const int last_row = min(q0 + wg * 64 + 63, seq - 1);   // the warpgroup's last stored row
 
   float acc[HD / 2];                       // the latest tile's dS K
 #pragma unroll
@@ -1374,11 +1460,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // S and dP of the key tile in ring slot j (both sweeps walk the same
   // tiles), then p = exp2(S scale log2(e) - lse log2(e)) in place of S,
-  // 0 past seq and above the diagonal
+  // 0 past seq, above the diagonal and outside the window
   const auto tile = [&](int j) {
     const int st = j % kDqStages;
     const uint32_t parity = (j / kDqStages) & 1;
-    const int k0 = (j % n_kv) * kDqBN;
+    const int k0 = (first + j % n_kv) * kDqBN;
     const uint32_t k_tile = base + L::kK + st * L::kTileBytes;
     const uint32_t v_tile = base + L::kV + st * L::kTileBytes;
     mbar_wait(k_full + 8 * st, parity);
@@ -1400,13 +1486,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
     wgmma_wait<1>();                       // S has landed; dP is still running
     fence_regs(s);
-    const bool edge = k0 + kDqBN > seq || (causal && k0 + kDqBN - 1 > q0 + wg * 64);
+    const bool edge = k0 + kDqBN > seq || (causal && k0 + kDqBN - 1 > q0 + wg * 64) ||
+                      (window > 0 && k0 + window <= last_row);
 #pragma unroll
     for (int i = 0; i < kDqBN / 2; ++i) {
       const float p = exp2f(fmaf(s[i], scale_log2, (i & 2) ? -lse_b : -lse_a));
       const int c = k0 + 8 * (i / 4) + col + (i & 1);
       const int r = (i & 2) ? row_b : row_a;
-      s[i] = edge && (c >= seq || (causal && c > r)) ? 0.f : p;
+      s[i] = edge && (c >= seq || (causal && c > r) || !in_window(c, r, window)) ? 0.f : p;
     }
     wgmma_wait<0>();
     fence_regs(dp);
@@ -1471,7 +1558,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -1479,9 +1566,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_do,
                             const float2* __restrict__ rowstat, __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, int seq, int group, float scale,
-                            int causal) {
+                            int causal, int window) {
   using L = DkvSmem<HD>;
   constexpr int kPanels = HD / kPanelCols;
+  if (!kWindow) window = 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   float4* master_dk =
@@ -1495,9 +1583,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x;
   const int bkv = blockIdx.x;
   const int k0 = blockIdx.y * L::kKeys;    // key tile 0 has the most q tiles under a causal mask
-  const int n_q = (seq + kDkvBQ - 1) / kDkvBQ;
   const int first = causal ? k0 / kDkvBQ : 0;   // earlier q rows see none of these keys
-  const int per_head = n_q - first;
+  // nor do rows past the window of the block's last key
+  const int end = window_end_tile(k0 + L::kKeys - 1, window, kDkvBQ, (seq + kDkvBQ - 1) / kDkvBQ);
+  const int per_head = end - first;
   const int steps = group * per_head;
 
   if (tid == 0) {
@@ -1591,8 +1680,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(dp);
 
     // P^T = exp2(S^T scale log2(e) - lse[q] log2(e)) and dS^T = P^T (dP^T -
-    // D[q]), 0 past seq and above the diagonal; both as hi + lo bf16 pairs
-    const bool edge = q0 + kDkvBQ > seq || (causal && q0 < key0 + 63);
+    // D[q]), 0 past seq, above the diagonal and outside the window; both as
+    // hi + lo bf16 pairs
+    const bool edge = q0 + kDkvBQ > seq || (causal && q0 < key0 + 63) ||
+                      (window > 0 && key0 + window <= min(q0 + kDkvBQ - 1, seq - 1));
     // {lse log2(e), D} of q rows 8 c + col and + 1: one 16-byte load a chunk
     const float2* stat = rowstat + static_cast<size_t>(bh) * stat_rows + q0 + col;
     uint32_t p_hi[kDkvBQ / 4], p_lo[kDkvBQ / 4], ds_hi[kDkvBQ / 4], ds_lo[kDkvBQ / 4];
@@ -1607,8 +1698,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         float p0 = exp2f(fmaf(s[i], scale_log2, -rs.x));
         float p1 = exp2f(fmaf(s[i + 1], scale_log2, -rs.z));
         if (edge) {
-          if (qr >= seq || (causal && qr < key)) p0 = 0.f;
-          if (qr + 1 >= seq || (causal && qr + 1 < key)) p1 = 0.f;
+          if (qr >= seq || (causal && qr < key) || !in_window(key, qr, window)) p0 = 0.f;
+          if (qr + 1 >= seq || (causal && qr + 1 < key) || !in_window(key, qr + 1, window))
+            p1 = 0.f;
         }
         split_bf16(p0, p1, p_hi[2 * c + h], p_lo[2 * c + h]);
         split_bf16(p0 * (dp[i] - rs.y), p1 * (dp[i + 1] - rs.w), ds_hi[2 * c + h],
@@ -1665,10 +1757,10 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, float2* rowstat, void* dq, void* dk, void* dv,
-                             int bh, int bh_kv, int seq, float scale, int causal,
+                             int bh, int bh_kv, int seq, float scale, int causal, int window,
                              cudaStream_t stream) {
   using Lq = DqSmem<HD>;
   using Lkv = DkvSmem<HD>;
@@ -1686,22 +1778,22 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
       !tensor_map(encode, &tm_kb, k, bh_kv, seq, HD, Lkv::kKeys) ||
       !tensor_map(encode, &tm_vb, v, bh_kv, seq, HD, Lkv::kKeys))
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<HD>, Lq::kAlloc);
+  cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<HD, kWindow>, Lq::kAlloc);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dkdv_wgmma_kernel<HD>, Lkv::kAlloc);
+  err = allow_smem(flash_bwd_dkdv_wgmma_kernel<HD, kWindow>, Lkv::kAlloc);
   if (err != cudaSuccess) return err;
   const int group = bh / bh_kv;
-  flash_bwd_dq_wgmma_kernel<HD><<<dim3(bh, (seq + kTcBM - 1) / kTcBM), kTcThreads, Lq::kAlloc,
-                                  stream>>>(
+  flash_bwd_dq_wgmma_kernel<HD, kWindow><<<dim3(bh, (seq + kTcBM - 1) / kTcBM), kTcThreads,
+                                           Lq::kAlloc, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, rowstat, static_cast<__nv_bfloat16*>(dq), seq, group, scale,
-      causal);
+      causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // same stream: the dK/dV kernel reads the rowstat that the dQ kernel wrote
-  flash_bwd_dkdv_wgmma_kernel<HD><<<dim3(bh_kv, (seq + Lkv::kKeys - 1) / Lkv::kKeys),
-                                    kTcThreads, Lkv::kAlloc, stream>>>(
+  flash_bwd_dkdv_wgmma_kernel<HD, kWindow><<<dim3(bh_kv, (seq + Lkv::kKeys - 1) / Lkv::kKeys),
+                                             kTcThreads, Lkv::kAlloc, stream>>>(
       tm_q64, tm_kb, tm_vb, tm_do64, rowstat, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), seq, group, scale, causal);
+      static_cast<__nv_bfloat16*>(dv), seq, group, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -1716,10 +1808,13 @@ extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, con
                                                const void* dout, const void* lse,
                                                void* rowstat, void* dq, void* dk, void* dv,
                                                int bh, int bh_kv, int seq, int hd, int is_bf16,
-                                               int causal, float scale, void* stream) {
+                                               int causal, int window, float scale,
+                                               void* stream) {
   if (bh <= 0 || bh_kv <= 0 || bh % bh_kv != 0 || seq <= 0 ||
-      (seq + kDkvBQ - 1) / kDkvBQ > 65535 || !is_bf16 || lse == nullptr || rowstat == nullptr)
+      (seq + kDkvBQ - 1) / kDkvBQ > 65535 || !is_bf16 || lse == nullptr || rowstat == nullptr ||
+      window < 0)
     return cudaErrorInvalidValue;
+  if (window >= seq) window = 0;          // masks no key: the kernels without a window
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
        reinterpret_cast<uintptr_t>(rowstat)) % 16 != 0)
@@ -1729,11 +1824,15 @@ extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, con
   float2* rs = static_cast<float2*>(rowstat);
   switch (hd) {
     case 64:
-      return launch_bwd_wgmma<64>(q, k, v, dout, l, rs, dq, dk, dv, bh, bh_kv, seq, scale,
-                                  causal, s);
+      return window ? launch_bwd_wgmma<64, true>(q, k, v, dout, l, rs, dq, dk, dv, bh, bh_kv, seq,
+                                                 scale, causal, window, s)
+                    : launch_bwd_wgmma<64, false>(q, k, v, dout, l, rs, dq, dk, dv, bh, bh_kv,
+                                                  seq, scale, causal, 0, s);
     case 128:
-      return launch_bwd_wgmma<128>(q, k, v, dout, l, rs, dq, dk, dv, bh, bh_kv, seq, scale,
-                                   causal, s);
+      return window ? launch_bwd_wgmma<128, true>(q, k, v, dout, l, rs, dq, dk, dv, bh, bh_kv,
+                                                  seq, scale, causal, window, s)
+                    : launch_bwd_wgmma<128, false>(q, k, v, dout, l, rs, dq, dk, dv, bh, bh_kv,
+                                                   seq, scale, causal, 0, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,15 +10,16 @@ from .rwkv_wkv import wkv_bhsd
 __all__ = ["flash_attention", "rwkv_wkv"]
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Flash attention in model layout. q [B,S,H,hd]; k/v [B,S,Hkv,hd]."""
+def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0) -> torch.Tensor:
+    """Flash attention in model layout. q [B,S,H,hd]; k/v [B,S,Hkv,hd];
+    ``sliding_window`` > 0 keeps key k for query q only if k > q - W."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     # .contiguous(): at B=1 reshape returns a strided view, not a copy
     qf = q.transpose(1, 2).reshape(b * hq, s, hd).contiguous()
     kf = k.transpose(1, 2).reshape(b * hkv, s, hd).contiguous()
     vf = v.transpose(1, 2).reshape(b * hkv, s, hd).contiguous()
-    o = flash_attention_bhsd(qf, kf, vf, causal=causal)
+    o = flash_attention_bhsd(qf, kf, vf, causal=causal, sliding_window=sliding_window)
     return o.reshape(b, hq, s, hd).transpose(1, 2)
 
 

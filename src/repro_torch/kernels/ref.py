@@ -31,21 +31,30 @@ def check_attention_shapes(q, k, v) -> None:
         raise ValueError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def reference_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def reference_attention(q, k, v, *, causal: bool = True,
+                        sliding_window: int = 0) -> torch.Tensor:
     """Naive softmax attention. q [BH,S,hd]; k/v [BHkv,S,hd].
 
     The kernel's arithmetic: q, k, v upcast to f32, q scaled in f32, the
     full score matrix in f32, output cast to ``q.dtype``.  Query head
-    ``b`` reads kv head ``b // group`` without repeating K/V.
+    ``b`` reads kv head ``b // group`` without repeating K/V.  The JAX
+    model's mask (``repro/models/attention.py``): key ``k`` is kept for
+    query ``q`` only if ``k <= q`` when causal, and ``k > q - W`` when
+    ``sliding_window`` W > 0, the two independently.
     """
     check_attention_shapes(q, k, v)
     bh, s, hd = q.shape
     bh_kv = k.shape[0]
     qg = (q.float() * (hd ** -0.5)).reshape(bh_kv, bh // bh_kv, s, hd)
     scores = qg @ k.float()[:, None].transpose(-1, -2)    # [BHkv, G, S, S]
+    pos = torch.arange(s, device=q.device)
+    keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
     if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~mask, _NEG_INF)
+        keep = keep & (pos[None, :] <= pos[:, None])
+    if sliding_window > 0:
+        keep = keep & (pos[None, :] > pos[:, None] - sliding_window)
+    if causal or sliding_window > 0:
+        scores = scores.masked_fill(~keep, _NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return (p @ v.float()[:, None]).reshape(bh, s, hd).to(q.dtype)
 

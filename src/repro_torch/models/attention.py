@@ -1,7 +1,8 @@
 """Grouped-query attention — port of ``repro/models/attention.py``.
 
 * :func:`gqa_attention` — self-attention over a full sequence
-  (prefill).  On CUDA tensors it runs the Hopper flash kernel through
+  (prefill), with an optional sliding window.  On CUDA tensors it runs
+  the Hopper flash kernel through
   :func:`repro_torch.kernels.ops.flash_attention`; on CPU tensors it
   runs the ported online-softmax scan (:func:`_chunked_gqa` /
   :func:`_chunked_mha`), so the CPU numerics are the JAX model's.
@@ -142,19 +143,13 @@ def gqa_attention(q, k, v, *, causal: bool = True, chunk: int = 512,
     """Self-attention; q [B,S,Hq,hd], k/v [B,S,Hkv,hd].
 
     CPU tensors run the chunked scan (``chunk`` is its KV chunk).  Other
-    devices run the Hopper kernel, which has no sliding window.  A window
-    of at least S masks no key (every key k of query q has k > q - S), so
-    the kernel computes the same function there; a window shorter than S
-    raises rather than silently attending to the whole prefix.
+    devices run the Hopper kernels, which mask the window themselves and
+    skip the tiles it empties.
     """
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     if q.device.type != "cpu":
-        if 0 < sliding_window < s:
-            raise NotImplementedError(
-                f"the Hopper flash kernel has no sliding window; a window of "
-                f"{sliding_window} < S = {s} waits for a kernel that masks it")
-        return ops.flash_attention(q, k, v, causal=causal)
+        return ops.flash_attention(q, k, v, causal=causal, sliding_window=sliding_window)
     groups = hq // hkv
     chunk = min(chunk, s)
     if groups == 1:

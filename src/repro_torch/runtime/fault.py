@@ -5,13 +5,11 @@
 * :func:`run_with_restarts` — supervisor loop: run, catch, restore from
   the latest checkpoint, resume; gives up after ``max_restarts``,
 * :class:`StragglerMonitor` — per-host step-time statistics that flag
-  outliers and give each straggler's measured speed factor,
+  outliers, give each straggler's measured speed factor, and turn the
+  factors into ``SpeedChange`` events and a degraded
+  :class:`~repro_torch.core.platform.Platform` (slow hosts as slower
+  processors), the input a scheduler re-plans on,
 * :class:`StepTimer` — wall time between laps.
-
-The JAX monitor also turns its factors into scheduler events
-(``speed_events``) and a degraded platform (``degraded_platform``); both
-need the scheduler's platform model, which the port has not copied yet,
-and arrive with the placement slice.
 """
 from __future__ import annotations
 
@@ -99,6 +97,31 @@ class StragglerMonitor:
             for h, m in meds.items()
             if m > self.threshold * overall
         }
+
+    def speed_events(self, platform, host_of_proc, *, at: float = 0.0):
+        """The measured slowdowns as :class:`repro_torch.scenario.SpeedChange`
+        events at time ``at``: one for each processor ``j`` of ``platform``
+        whose host ``host_of_proc(j)`` straggles."""
+        from repro_torch.scenario import SpeedChange
+
+        factors = self.slowdown_factors()
+        return [SpeedChange(time=at, proc=j, factor=factors[host_of_proc(j)])
+                for j in range(platform.k) if host_of_proc(j) in factors]
+
+    def degraded_platform(self, platform, host_of_proc):
+        """``platform`` with each straggler processor's speed scaled by its
+        measured slowdown, named ``<name>-degraded``: the events of
+        :meth:`speed_events` applied in turn, so per-link bandwidth
+        overrides, failure rates and power models are kept.  The platform
+        itself when no host straggles."""
+        events = self.speed_events(platform, host_of_proc)
+        if not events:
+            return platform
+        out = platform
+        for ev in events:
+            out, _ = ev.apply(out)
+        out.name = platform.name + "-degraded"
+        return out
 
 
 class StepTimer:

@@ -194,11 +194,30 @@ def test_head_ratio_error():
         flash_attention_bhsd(q, k, v)
 
 
-def test_sliding_window_on_a_card_tensor_raises():
-    q = torch.empty(1, 8, 4, 128, device="meta")
-    kv = torch.empty(1, 8, 2, 128, device="meta")
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        tattn.gqa_attention(q, kv, kv, sliding_window=4)
+def test_sliding_window_on_a_meta_tensor_takes_the_kernels_meta_branch():
+    """A window shorter than S on a non-CPU tensor goes to the kernel (the
+    dry run's meta tensors take its route): the meta branch records the
+    windowed work, the kept pairs' FLOPs, and launches nothing."""
+    import importlib
+    from repro_torch.kernels import cost
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, s, hq, hkv, hd, window = 1, 8, 4, 2, 128, 4
+    q = torch.empty(b, s, hq, hd, device="meta")
+    kv = torch.empty(b, s, hkv, hd, device="meta")
+    seen = []
+    sink = lambda *rec: seen.append(rec)  # noqa: E731
+    cost.add_sink(sink)
+    fa.reset_launch_counts()
+    try:
+        out = tattn.gqa_attention(q, kv, kv, sliding_window=window)
+    finally:
+        cost.remove_sink(sink)
+    assert (out.shape, out.device.type) == (q.shape, "meta")
+    assert fa.flash_attention_bhsd.launches == 0
+    pairs = window * (window + 1) // 2 + (s - window) * window
+    assert seen == [("flash_attention_bhsd[cuda_core]", 4 * hd * pairs * b * hq,
+                     cost.attention_bytes(b * hq, b * hkv, s, hd, 4), "f32")]
+    assert seen[0][1] < cost.attention_flops(b * hq, s, hd, True)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):

@@ -1,0 +1,103 @@
+"""The port's examples run on the CPU with JAX blocked.
+
+Each of ``examples/train_lm_torch.py`` (smallest preset),
+``pipeline_training_torch.py`` (4 gloo stage processes) and
+``quickstart_torch.py`` runs with ``--device cpu`` in a subprocess with its
+own time limit.  A ``sitecustomize`` on the subprocess's path blocks
+``jax`` and ``jaxlib`` in it and in every process it spawns, so an example
+that reached JAX would fail with an ImportError.  The scheduler
+(``repro.core``, ``repro.configs``) is pure Python and stays importable.
+"""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+_REPO = Path(__file__).resolve().parents[1]
+_TIMEOUT_S = 300
+
+_BLOCKER = textwrap.dedent("""
+    import importlib
+    import os
+    import sys
+
+    class _BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, _BlockJax())
+    # hand over to any other sitecustomize further down the path
+    _here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != _here]
+    del sys.modules[__name__]
+    try:
+        importlib.import_module("sitecustomize")
+    except ImportError:
+        pass
+""")
+
+
+def _run(tmp_path, script, *args):
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(_BLOCKER)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocker), str(_REPO / "src")]),
+           "OMP_NUM_THREADS": "2"}
+    res = subprocess.run([sys.executable, str(_REPO / "examples" / script), *args],
+                         capture_output=True, text=True, timeout=_TIMEOUT_S, env=env,
+                         cwd=str(tmp_path))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    return res.stdout
+
+
+def test_blocker_blocks_jax(tmp_path):
+    """The sitecustomize the examples run under really blocks JAX."""
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(_BLOCKER)
+    res = subprocess.run([sys.executable, "-c", "import jax"], capture_output=True, text=True,
+                         timeout=60, env={**os.environ, "PYTHONPATH": str(blocker)})
+    assert res.returncode != 0 and "blocked: jax" in res.stderr
+
+
+def test_train_lm_torch_tiny(tmp_path):
+    out = _run(tmp_path, "train_lm_torch.py", "--preset", "tiny", "--device", "cpu",
+               "--ckpt-dir", str(tmp_path / "ckpt"))
+    first, last = map(float, re.search(r"loss: ([\d.]+) -> ([\d.]+)", out).groups())
+    assert last < first and "0 restarts" in out
+
+
+def test_train_lm_torch_restarts_after_a_fault(tmp_path):
+    out = _run(tmp_path, "train_lm_torch.py", "--preset", "tiny", "--device", "cpu",
+               "--steps", "12", "--inject-fault-at", "7", "--ckpt-dir", str(tmp_path / "ckpt"))
+    assert "1 restarts" in out
+
+
+def test_pipeline_training_torch(tmp_path):
+    out = _run(tmp_path, "pipeline_training_torch.py", "--device", "cpu")
+    assert "split 8 layers into [2, 2, 2, 2]" in out
+    first, last = map(float, re.search(
+        r"pipeline training \(4 stage\(s\), 4 microbatches, cpu\): loss ([\d.]+) -> ([\d.]+)",
+        out).groups())
+    assert last < first
+
+
+def test_quickstart_torch(tmp_path):
+    out = _run(tmp_path, "quickstart_torch.py", "--device", "cpu")
+    assert "on 64 H100 cards" in out and "valid: True" in out
+    first, last = map(float, re.search(r"8 steps: loss ([\d.]+) -> ([\d.]+)", out).groups())
+    assert out.rstrip().endswith("done.") and last < first
+
+
+@pytest.mark.parametrize("script", ["train_lm_torch.py", "pipeline_training_torch.py",
+                                    "quickstart_torch.py"])
+def test_example_imports_nothing_of_jax_and_defaults_to_the_card(script):
+    src = (_REPO / "examples" / script).read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", src, re.MULTILINE)
+    assert 'default="cuda"' in src

@@ -40,7 +40,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.launch.mesh", "repro_torch.launch.sharding",
                  "repro_torch.launch.steps", "repro_torch.models.shards",
                  "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
-                 "repro_torch.kernels.cost", "repro_torch.runtime.pipeline"):
+                 "repro_torch.kernels.cost", "repro_torch.runtime.pipeline",
+                 "repro_torch.core.platform", "repro_torch.scenario.events"):
         assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -331,6 +331,104 @@ def test_flash_tensor_core_backward_rejects_an_unaligned_do(card):
     assert flash_attention_bhsd.variant_launches == before
 
 
+# The sliding window: (b, s, h, hkv, hd, window) at both forward and both
+# backward kernels (bf16 at hd 64/128 on the tensor cores, f32 on the CUDA
+# cores), a ragged S over many tiles with a window off every tile size and
+# of one key, a window of one tile at hd 64, GQA 4:1, and a window one short
+# of S.  The limits are the unwindowed calls'.
+_WINDOW_SHAPES = [(1, 1000, 4, 2, 128, 300), (1, 1000, 4, 2, 128, 1),
+                  (2, 300, 8, 2, 64, 64), (1, 513, 16, 4, 64, 200),
+                  (1, 257, 4, 1, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,hd,window", _WINDOW_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_matches_plain(card, b, s, h, hkv, hd, window, dtype, causal):
+    """Forward, lse and the three gradients of a windowed call against the
+    plain version with the same window (autograd of it for the gradients),
+    counted under the "+window" mask."""
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    gen = torch.Generator(device=card).manual_seed(13 * s + window)
+    q, k, v, do = (torch.randn((b * n, s, hd), generator=gen, device=card).to(tdt)
+                   for n in (h, hkv, hkv, h))
+    fa_mod.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_bhsd(*leaves, causal=causal, sliding_window=window)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    mask = ("causal" if causal else "full") + "+window"
+    assert flash_attention_bhsd.mask_launches == {
+        f"{kernel_variant(tdt, hd)}/{mask}": 1, f"{backward_variant(tdt, hd)}/{mask}": 1}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention_bhsd_plain(*leaves, causal=causal, sliding_window=window)
+    ref_grads = torch.autograd.grad(ref, leaves, do)
+    atol, rtol = (2e-5, 2e-5) if dtype == "f32" else (1e-5, 2.0 ** -7)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=rtol, msg=name)
+    # every row keeps a key, so its lse is finite: the logsumexp of its
+    # kept scaled scores
+    _, lse = fa_mod._forward(q, k, v, causal, with_lse=True, sliding_window=window)
+    pos = torch.arange(s, device=card)
+    keep = pos[None, :] > pos[:, None] - window
+    if causal:
+        keep &= pos[None, :] <= pos[:, None]
+    scores = ((q.float().reshape(b * hkv, h // hkv, s, hd) * hd ** -0.5)
+              @ k.float()[:, None].transpose(-1, -2)).masked_fill(~keep, float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1).reshape(b * h, s),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [("f32", 64), ("bf16", 64), ("bf16", 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_of_at_least_s_is_bit_equal_to_none(card, dtype, hd, causal):
+    """A window of S or 2S masks nothing: output and gradients carry the
+    bits of the call without a window, and the launch counts as unwindowed."""
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    gen = torch.Generator(device=card).manual_seed(hd + causal)
+    s = 300
+    q, k, v, do = (torch.randn((n, s, hd), generator=gen, device=card).to(tdt)
+                   for n in (8, 2, 2, 8))
+    runs = []
+    for window in (0, s, 2 * s):
+        fa_mod.reset_launch_counts()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_bhsd(*leaves, causal=causal, sliding_window=window)
+        runs.append((out, *torch.autograd.grad(out, leaves, do)))
+        assert all("window" not in key for key in flash_attention_bhsd.mask_launches)
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_window_rejects_a_negative_window(card):
+    q = torch.zeros(4, 8, 128, device=card)
+    before = flash_attention_bhsd.launches
+    with pytest.raises(ValueError, match="sliding_window"):
+        flash_attention_bhsd(q, q[:2], q[:2], sliding_window=-1)
+    assert flash_attention_bhsd.launches == before
+
+
+@pytest.mark.cuda
+def test_gqa_attention_window_runs_the_kernel_on_a_card(card):
+    """mixtral's route: a window shorter than S goes to the kernel, in
+    model layout, and agrees with the plain version."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn((1, 700, 8, 128), generator=gen, device=card).bfloat16()
+    k, v = (torch.randn((1, 700, 2, 128), generator=gen, device=card).bfloat16()
+            for _ in range(2))
+    fa_mod.reset_launch_counts()
+    out = attention_mod.gqa_attention(q, k, v, sliding_window=256)
+    assert flash_attention_bhsd.mask_launches == {"wgmma/causal+window": 1}
+    tr = lambda t: t.transpose(1, 2).reshape(-1, 700, 128)  # noqa: E731
+    ref = flash_attention_bhsd_plain(tr(q), tr(k), tr(v), sliding_window=256)
+    torch.testing.assert_close(tr(out).float(), ref.float(), atol=1e-5, rtol=2.0 ** -7)
+
+
 # WKV: (b, s, h, hd) — tests/test_kernels.py::TestRwkvWkv's shapes and a
 # ragged S over the model's heads
 _WKV_SHAPES = [(1, 16, 1, 8), (2, 32, 2, 16), (1, 64, 4, 64), (2, 24, 2, 32),
@@ -806,13 +904,20 @@ def test_gqa_attention_with_a_window_of_at_least_s_takes_the_kernel(card, window
 
 
 @pytest.mark.cuda
-def test_gqa_attention_with_a_window_shorter_than_s_raises(card):
-    q = torch.randn((1, 300, 8, 128), device=card)
-    kv = torch.randn((1, 300, 2, 128), device=card)
-    before = flash_attention_bhsd.launches
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        attention_mod.gqa_attention(q, kv, kv, sliding_window=299)
-    assert flash_attention_bhsd.launches == before
+@pytest.mark.parametrize("window", [1, 64, 299])
+def test_gqa_attention_with_a_window_shorter_than_s_runs_the_windowed_kernel(card, window):
+    """A window shorter than S goes to the windowed kernel on the card and
+    equals the chunked scan with that window (f32: the kernel's limit)."""
+    gen = torch.Generator(device=card).manual_seed(window)
+    q = torch.randn((1, 300, 8, 128), generator=gen, device=card)
+    k, v = (torch.randn((1, 300, 2, 128), generator=gen, device=card) for _ in range(2))
+    fa_mod.reset_launch_counts()
+    out = attention_mod.gqa_attention(q, k, v, sliding_window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bhsd.mask_launches == {"cuda_core/causal+window": 1}
+    og = attention_mod._chunked_gqa(q.reshape(1, 300, 2, 4, 128), k, v, causal=True,
+                                    chunk=128, sliding_window=window)
+    torch.testing.assert_close(out, og.reshape(q.shape), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda

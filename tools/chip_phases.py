@@ -13,15 +13,37 @@ of phases that failed.
 Phases: ``steps_prefill``, ``steps_decode`` (after ``steps_prefill``, on
 its model), ``steps_train``, ``steps_rwkv_train``, ``jamba_train``,
 ``vision_train``, ``dryrun_steps`` (after the first three, whose rows it
-reads), ``production_dryrun``, ``pipeline``.  ``--vision-cut LAYERS PERIOD`` trains vision at another
-depth and ``cross_attn_period`` than ``chip_smoke.VISION_TRAIN_CUT``.
-The step phases take the Trainer's step time they are set beside as
+reads), ``production_dryrun``, ``pipeline``, and the sliding window's:
+``kernel_window`` and ``backward_window`` (phases 2 and 8's windowed
+rows), ``mixtral`` (phase 15 with its 32k prefill), ``mixtral_window``
+(its f32 check and training step), ``train_lm_example`` (phase 28a); and
+``flash_ab``, which times the tensor-core flash kernels of other versions
+of ``csrc/flash_attention.cu`` against the current one (below).
+``--vision-cut LAYERS PERIOD`` trains vision at another depth and
+``cross_attn_period`` than ``chip_smoke.VISION_TRAIN_CUT``.  The step
+phases take the Trainer's step time they are set beside as
 ``--trainer-step-s`` (the ratio is reported, not checked).
+
+``flash_ab`` builds each ``--ab-source NAME=PATH`` with the kernels' own
+nvcc flags and times its tensor-core forward and backward beside the
+current source's, on the same seeded bf16 inputs with no window
+(``AB_SHAPES``), in turns (the versions in order, then back), each with
+``chip_smoke.time_ms``; it reports whether each version's outputs and
+gradients have the bits of the first.  Calls go through the C entry
+points, so no launch count moves; the int arguments each version's entry
+points take are read from its source.  To set the parent commit beside
+the tree:
+
+    git show HEAD~1:src/repro_torch/kernels/csrc/flash_attention.cu > build/parent.cu
+    python3 tools/chip_phases.py flash_ab --ab-source parent=build/parent.cu
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import re
+import subprocess
 import sys
 import time
 import traceback
@@ -32,7 +54,104 @@ import chip_smoke as cs  # noqa: E402
 import torch  # noqa: E402
 
 PHASES = ("steps_prefill", "steps_decode", "steps_train", "steps_rwkv_train",
-          "jamba_train", "vision_train", "dryrun_steps", "production_dryrun", "pipeline")
+          "jamba_train", "vision_train", "dryrun_steps", "production_dryrun", "pipeline",
+          "kernel_window", "backward_window", "mixtral", "mixtral_window", "train_lm_example",
+          "flash_ab")
+# flash_ab's (b, s, hq, hkv, hd, causal): llama3_8b's, olmoe_1b_7b's and
+# seamless_m4t_v2's layers at their training length
+AB_SHAPES = [(1, 4096, 32, 8, 128, True), (1, 4096, 16, 16, 128, True),
+             (1, 4096, 16, 16, 64, True), (1, 4096, 16, 16, 64, False)]
+AB_ENTRIES = {"fwd": ("repro_flash_attention_fwd_wgmma", 5),
+              "bwd": ("repro_flash_attention_bwd_wgmma", 9)}
+
+
+def entry_ints(src: Path) -> int:
+    """The int arguments the tensor-core entry points of ``src`` take, read
+    from their signatures (6 before the sliding window, 7 with it)."""
+    text = src.read_text()
+    counts = set()
+    for entry, _ in AB_ENTRIES.values():
+        m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+        if m is None:
+            raise ValueError(f"{src} defines no {entry}")
+        counts.add(sum(re.fullmatch(r"int\s+\w+", a.strip()) is not None
+                       for a in m.group(1).split(",")))
+    if len(counts) != 1:
+        raise ValueError(f"the entry points of {src} take {sorted(counts)} ints")
+    return counts.pop()
+
+
+def ab_load(lib_path: Path, n_int: int) -> dict:
+    lib = ctypes.CDLL(str(lib_path))
+    fns = {"n_int": n_int}
+    for kind, (entry, n_ptr) in AB_ENTRIES.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[kind] = fn
+    return fns
+
+
+def ab_calls(lib: dict, shape) -> dict:
+    """Forward and backward launches of one version on seeded bf16 inputs,
+    each run once; their outputs under "out"."""
+    b, s, hq, hkv, hd, causal = shape
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    q, k, v, do = (torch.randn((b * n, s, hd), generator=gen, device="cuda").bfloat16()
+                   for n in (hq, hkv, hkv, hq))
+    o = torch.empty_like(q)
+    lse = torch.empty((b * hq, s), dtype=torch.float32, device="cuda")
+    rowstat = torch.empty((b * hq, -(-s // 128) * 128, 2), dtype=torch.float32, device="cuda")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream().cuda_stream
+    ints = [b * hq, b * hkv, s, hd, 1, int(causal), 0][:lib["n_int"]]
+    ptrs = {"fwd": (q, k, v, o, lse), "bwd": (q, k, v, do, lse, rowstat, dq, dk, dv)}
+
+    def launcher(kind):
+        args = [t.data_ptr() for t in ptrs[kind]]
+
+        def launch():
+            err = lib[kind](*args, *ints, hd ** -0.5, stream)
+            if err:
+                raise RuntimeError(f"{kind} launch failed: cudaError_t {err}")
+        return launch
+    made = {kind: launcher(kind) for kind in AB_ENTRIES}
+    made["fwd"]()
+    made["bwd"]()
+    made["out"] = (o, lse, dq, dk, dv)
+    return made
+
+
+def flash_ab(sources: list[str], reps: int = 20) -> list[dict]:
+    """The ``flash_ab`` phase: every ``NAME=PATH`` of ``sources``, then the
+    current source, timed in turns at ``AB_SHAPES``."""
+    libs = {}
+    for spec in sources:
+        name, path = spec.split("=", 1)
+        out = cs._build.BUILD_DIR / f"ab_{name}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cs._build.nvcc_path(), *cs._build.NVCC_FLAGS, "-o", str(out), path],
+                       check=True, stdout=subprocess.DEVNULL)
+        libs[name] = ab_load(out, entry_ints(Path(path)))
+    libs["current"] = ab_load(cs._build.library_path("flash_attention"),
+                              entry_ints(cs._build.CSRC / "flash_attention.cu"))
+    names, rows = list(libs), []
+    for shape in AB_SHAPES:
+        made = {name: ab_calls(lib, shape) for name, lib in libs.items()}
+        torch.cuda.synchronize()
+        row = {"shape": list(shape), f"same_bits_as_{names[0]}": {
+            name: all(torch.equal(a, b) for a, b in zip(made[names[0]]["out"], m["out"]))
+            for name, m in made.items()}}
+        for kind in AB_ENTRIES:
+            turns = [(name, cs.time_ms(made[name][kind], reps)) for name in names + names[::-1]]
+            row[kind] = {name: [t for n, t in turns if n == name] for name in names}
+            row[f"{kind}_over_{names[0]}"] = {
+                name: sum(row[kind][name]) / sum(row[kind][names[0]]) for name in names}
+        cs.emit("flash_ab", **row)
+        rows.append(row)
+        del made
+    return rows
 
 
 def main(argv=None) -> int:
@@ -40,6 +159,8 @@ def main(argv=None) -> int:
     ap.add_argument("phases", nargs="+", choices=PHASES)
     ap.add_argument("--vision-cut", nargs=2, type=int, metavar=("LAYERS", "PERIOD"))
     ap.add_argument("--trainer-step-s", type=float, default=float("nan"))
+    ap.add_argument("--ab-source", action="append", default=[], metavar="NAME=PATH",
+                    help="another version of csrc/flash_attention.cu for flash_ab")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_phases: torch.cuda.is_available() is false", file=sys.stderr)
@@ -72,7 +193,13 @@ def main(argv=None) -> int:
             "dryrun_steps": lambda: cs.phase_dryrun_steps(llama, held["prefill"],
                                                           held["decode"], held["train"]),
             "production_dryrun": cs.phase_production_dryrun,
-            "pipeline": lambda: cs.phase_pipeline(llama)}
+            "pipeline": lambda: cs.phase_pipeline(llama),
+            "kernel_window": cs.phase_kernel_window,
+            "backward_window": cs.phase_backward_window,
+            "mixtral": lambda: cs.phase_mixtral(cs.get_config("mixtral_8x7b")),
+            "mixtral_window": lambda: cs.phase_mixtral_window(cs.get_config("mixtral_8x7b")),
+            "train_lm_example": cs.phase_train_lm_example,
+            "flash_ab": lambda: flash_ab(args.ab_source)}
     failed = 0
     for name in args.phases:
         torch.cuda.reset_peak_memory_stats()
