@@ -271,7 +271,22 @@ a non-zero exit if it fails:
 28a. train_lm_example  ``examples/train_lm_torch.py --preset tiny`` on the
                card, a process of its own with its own time limit: exit 0
                and a falling loss
-29. kernels    the card's nvidia-smi line again, one JSON line listing every
+29. scheduler  the paper's scheduler (``repro_torch.core``, host code in
+               numpy) on the card's host: each of the seven ``FAMILIES`` at
+               n = 1000, seed 1, on ``default_cluster()`` through
+               ``schedule()`` with both algorithms; every mapping valid
+               (``validate_mapping`` returns no violation) and a rerun
+               bit-equal (makespan, blocks, processors); the makespans,
+               their ratio, the wall seconds.  Then ``autoshard.plan`` of
+               llama3_8b and olmoe_1b_7b at phase 4's 2 x 4096 prefill on
+               ``h100_fleet_si({"h100": 1})``: one valid stage each, its GB
+               beside the peak phases 4 and 12 measured, its estimated step
+               seconds beside the measured prefill seconds, both ratios
+               (no limit: the analytic model's error on this card);
+               mixtral_8x7b at that shape infeasible on one card (``plan``
+               gives None, ``Scheduler.schedule`` an ``Infeasibility`` with
+               its stage and reason) and in 2 valid stages on two
+30. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel (the flash forward also at olmoe_1b_7b's,
                jamba_15_large's, llama32_vision_90b's and seamless_m4t_v2's
                shapes and the tensor-core backward at olmoe_1b_7b's and
@@ -314,6 +329,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import SHAPES, ShapeConfig, get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import flatten_tree, param_tree, tree_leaves, tree_map  # noqa: E402
+from repro_torch.core import (FAMILIES, Scheduler, SchedulerConfig,  # noqa: E402
+                              default_cluster, generate_workflow, h100_fleet_si, schedule,
+                              validate_mapping)
+from repro_torch.core.autoshard import default_microbatches, plan  # noqa: E402
+from repro_torch.core.modelgraph import build_model_graph  # noqa: E402
 from repro_torch.kernels import _build, cost  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
@@ -358,6 +378,7 @@ TIMED_SHAPES = {MAIN_SHAPE: ("llama3_8b", ("f32", "bf16"), (True,)),
                 GQA8_SHAPE: ("jamba_15_large", ("bf16",), (True,)),
                 SEAMLESS_SHAPE: ("seamless_m4t_v2", ("bf16",), (False, True))}
 PREFILL = (2, 4096)                 # prompt batch x length of phase 3
+SCHED_N, SCHED_SEED = 1000, 1       # phase 29: tasks of each family's workflow, its seed
 MAIN_PATH = (2, 256)                # batch x prompt length of serve.main below
 CONSISTENCY = (2, 80)               # batch x length of the 4-layer f32 prefill vs decode
 KERNEL_SHAPES = [
@@ -3481,6 +3502,84 @@ def phase_pipeline(cfg_full) -> dict:
     return row
 
 
+def schedule_row(wf, platform, algorithm: str) -> dict:
+    """One ``schedule()`` of ``wf`` and a rerun: feasible, valid, and the
+    rerun's makespan, blocks and processors bit-equal to the first run's."""
+    t0 = time.perf_counter()
+    rep = schedule(wf, platform, algorithm=algorithm)
+    wall_s = time.perf_counter() - t0
+    check(rep.feasible, f"{wf.name} {algorithm}: infeasible: {rep.infeasibility}")
+    errors = validate_mapping(wf, rep.best)
+    check(errors == [], f"{wf.name} {algorithm}: invalid mapping: {errors[:3]}")
+    t0 = time.perf_counter()
+    again = schedule(wf, platform, algorithm=algorithm)
+    rerun_s = time.perf_counter() - t0
+    same = (again.makespan == rep.makespan
+            and again.summary.block_of_task == rep.summary.block_of_task
+            and again.summary.proc_of_block == rep.summary.proc_of_block)
+    check(same, f"{wf.name} {algorithm}: a rerun gave {again.makespan!r}, "
+          f"not {rep.makespan!r} with the same blocks")
+    return dict(makespan=rep.makespan, k_used=rep.summary.k_used,
+                k_prime=rep.summary.k_prime, sweep_points=len(rep.sweep), wall_s=wall_s,
+                rerun_wall_s=rerun_s, rerun_bit_equal=same)
+
+
+def phase_scheduler(smi: str, prefill_rows: dict) -> dict:
+    """Phase 29: the paper's scheduler on the card's host, then its plan of
+    the port's models against what phases 4 and 12 measured on the card
+    (``prefill_rows``: arch -> that phase's row)."""
+    platform = default_cluster()
+    families = {}
+    for family in FAMILIES:
+        wf = generate_workflow(family, SCHED_N, seed=SCHED_SEED, platform=platform)
+        row = {algo: schedule_row(wf, platform, algo) for algo in ("dag_het_part", "dag_het_mem")}
+        row["dag_het_mem_over_dag_het_part"] = (row["dag_het_mem"]["makespan"]
+                                                / row["dag_het_part"]["makespan"])
+        emit("scheduler", family=family, tasks=wf.n, seed=SCHED_SEED, platform=platform.name,
+             procs=platform.k, **row)
+        families[family] = row
+    b, s = PREFILL
+    shape = ShapeConfig("chip_smoke_prefill", seq_len=s, global_batch=b, kind="prefill")
+    one, two = h100_fleet_si({"h100": 1}), h100_fleet_si({"h100": 2})
+    plans = {}
+    for arch, measured in prefill_rows.items():
+        p = plan(get_config(arch), shape, one)
+        check(p is not None and p.n_stages == 1 and p.valid,
+              f"{arch}: no valid one-stage plan on one H100: {p}")
+        measured_s = measured["seconds"][-1]
+        row = dict(arch=arch, batch=b, seq=s, cards=1, stages=p.n_stages, valid=p.valid,
+                   stage_gb=p.stage_memory[0] / 1e9, stage_gib=p.stage_memory[0] / 2**30,
+                   measured_peak_gb=measured["peak_memory_gb"],
+                   est_step_s=p.est_step_s, est_bottleneck_s=p.est_bottleneck_s,
+                   measured_prefill_s=measured_s, nvidia_smi=smi)
+        row["stage_gb_over_measured_peak"] = row["stage_gb"] / row["measured_peak_gb"]
+        row["est_step_s_over_measured"] = p.est_step_s / measured_s
+        emit("plan", **row)
+        plans[arch] = row
+    mixtral = get_config("mixtral_8x7b")
+    check(plan(mixtral, shape, one) is None, "mixtral_8x7b planned onto one H100")
+    wf, _ = build_model_graph(mixtral, shape, microbatches=default_microbatches(shape))
+    report = Scheduler(SchedulerConfig()).schedule(wf, one)
+    infeas = report.infeasibility
+    check(not report.feasible and infeas is not None and bool(infeas.stage)
+          and bool(infeas.reason), f"mixtral_8x7b on one H100: {report.infeasibility}")
+    p = plan(mixtral, shape, two)
+    check(p is not None and p.n_stages == 2 and p.valid,
+          f"mixtral_8x7b: no valid two-stage plan on two H100s: {p}")
+    row = dict(arch="mixtral_8x7b", batch=b, seq=s,
+               one_card={"infeasible_stage": infeas.stage, "reason": infeas.reason,
+                         "tightest_gap_gib": (None if infeas.tightest_gap is None
+                                              else infeas.tightest_gap / 2**30),
+                         "attempts": infeas.attempts},
+               two_cards={"stages": p.n_stages, "valid": p.valid,
+                          "stage_gib": [m / 2**30 for m in p.stage_memory],
+                          "proc_of_stage": p.proc_of_stage, "est_step_s": p.est_step_s},
+               nvidia_smi=smi)
+    emit("plan_mixtral", **row)
+    plans["mixtral_8x7b"] = row
+    return {"families": families, "plans": plans}
+
+
 def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3608,7 +3707,7 @@ def main() -> int:
 
     cfg = get_config("llama3_8b")
     model = LM(cfg, seed=SEED, device="cuda")        # bf16, full depth
-    phase_prefill(model)
+    llama_prefill = phase_prefill(model)
     cuda_core_launches = phase_consistency(cfg)
     phase_serve(model)
     phase_profile(model)
@@ -3640,7 +3739,7 @@ def main() -> int:
 
     olmoe_cfg = get_config("olmoe_1b_7b")
     model = LM(olmoe_cfg, seed=SEED, device="cuda")  # bf16, full depth
-    phase_olmoe(model)
+    olmoe_prefill = phase_olmoe(model)
     del model
     torch.cuda.empty_cache()
     olmoe_launches = phase_main_path("olmoe_1b_7b")
@@ -3699,6 +3798,7 @@ def main() -> int:
     pipeline = phase_pipeline(cfg)
     free()
     phase_train_lm_example()
+    phase_scheduler(smi, {"llama3_8b": llama_prefill, "olmoe_1b_7b": olmoe_prefill})
 
     olmoe, jamba_id, vision_id, seamless = ("olmoe_1b_7b", "jamba_15_large",
                                             "llama32_vision_90b", "seamless_m4t_v2")

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro.core import Platform, Processor, Workflow, schedule
+from repro_torch.core import Platform, Processor, Workflow, schedule
 from repro_torch.runtime import pipeline_apply, stack_stage_params
 
 N_LAYERS, D, BATCH, MICROBATCHES, LR = 8, 32, 16, 4, 0.1

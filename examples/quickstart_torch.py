@@ -1,11 +1,11 @@
 """Quickstart on the PyTorch port: the paper's scheduler + the port in a
 minute.  The counterpart of ``examples/quickstart.py``.
 
-1. Map a memory-constrained workflow through the unified Scheduler API
-   (``repro.core``, pure Python, unchanged): the baseline (DagHetMem) and
-   the four-step heuristic (DagHetPart).
+1. Map a memory-constrained workflow through the port's unified Scheduler
+   API (``repro_torch.core``, host code in numpy): the baseline
+   (DagHetMem) and the four-step heuristic (DagHetPart).
 2. Lower mixtral_8x7b's ``decode_32k`` cell to a workflow DAG and let the
-   same scheduler place it on a fleet of H100 cards (the port's
+   same scheduler place it on a fleet of H100 cards (the
    ``h100_fleet_si`` preset: spec rates, a few degraded cards).
 3. Train a small LM for a few steps through the port's fault-tolerant
    runtime, on the card by default (``--device cpu``: on the CPU).
@@ -15,21 +15,18 @@ Run:  PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
 import argparse
 import tempfile
 
-from repro.configs import get_config, shape_by_name
-from repro.core import (
-    Platform,
-    Processor,
+from repro_torch.configs import get_config, get_smoke_config, shape_by_name
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import (
     Scheduler,
     SchedulerConfig,
     default_cluster,
     generate_workflow,
+    h100_fleet_si,
     schedule,
     validate_mapping,
 )
-from repro.core.autoshard import plan
-from repro_torch.configs import get_smoke_config
-from repro_torch.configs.base import ShapeConfig
-from repro_torch.core import h100_fleet_si
+from repro_torch.core.autoshard import plan
 from repro_torch.runtime import Trainer, TrainerConfig
 
 
@@ -65,10 +62,7 @@ def part2_model_placement():
     print("=== 2. The scheduler as the placement layer, on an H100 fleet ===")
     cfg = get_config("mixtral_8x7b")
     fleet = h100_fleet_si({"h100": 56, "h100-degraded": 8})
-    # the port's fleet as the scheduler's Platform: same processors, same β
-    sched_fleet = Platform([Processor(p.name, p.speed, p.memory) for p in fleet.procs],
-                           fleet.bandwidth, fleet.name, dict(fleet.link_bandwidth))
-    p = plan(cfg, shape_by_name("decode_32k"), sched_fleet, kprime=[8, 16, 32, 64])
+    p = plan(cfg, shape_by_name("decode_32k"), fleet, kprime=[8, 16, 32, 64])
     print(f"mixtral-8x7b decode_32k on {fleet.k} H100 cards (8 degraded; spec rates):")
     print(f"  stages: {p.n_stages}, valid: {p.valid}")
     print(f"  est step latency: {p.est_step_s * 1e3:.2f} ms (the spec roofline's, not measured)")

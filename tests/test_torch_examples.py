@@ -5,8 +5,10 @@ Each of ``examples/train_lm_torch.py`` (smallest preset),
 ``quickstart_torch.py`` runs with ``--device cpu`` in a subprocess with its
 own time limit.  A ``sitecustomize`` on the subprocess's path blocks
 ``jax`` and ``jaxlib`` in it and in every process it spawns, so an example
-that reached JAX would fail with an ImportError.  The scheduler
-(``repro.core``, ``repro.configs``) is pure Python and stays importable.
+that reached JAX would fail with an ImportError.  For the two examples
+that schedule (``pipeline_training_torch.py``, ``quickstart_torch.py``) it
+blocks the JAX package ``repro`` as well: they plan through the port's own
+scheduler (``repro_torch.core``).
 """
 import os
 import re
@@ -25,9 +27,11 @@ _BLOCKER = textwrap.dedent("""
     import os
     import sys
 
+    _BLOCKED = tuple(os.environ.get("REPRO_TEST_BLOCKED", "jax,jaxlib").split(","))
+
     class _BlockJax:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in _BLOCKED:
                 raise ImportError("blocked: " + name)
             return None
 
@@ -43,12 +47,12 @@ _BLOCKER = textwrap.dedent("""
 """)
 
 
-def _run(tmp_path, script, *args):
+def _run(tmp_path, script, *args, blocked=("jax", "jaxlib")):
     blocker = tmp_path / "blocker"
     blocker.mkdir()
     (blocker / "sitecustomize.py").write_text(_BLOCKER)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocker), str(_REPO / "src")]),
-           "OMP_NUM_THREADS": "2"}
+           "OMP_NUM_THREADS": "2", "REPRO_TEST_BLOCKED": ",".join(blocked)}
     res = subprocess.run([sys.executable, str(_REPO / "examples" / script), *args],
                          capture_output=True, text=True, timeout=_TIMEOUT_S, env=env,
                          cwd=str(tmp_path))
@@ -57,13 +61,19 @@ def _run(tmp_path, script, *args):
 
 
 def test_blocker_blocks_jax(tmp_path):
-    """The sitecustomize the examples run under really blocks JAX."""
+    """The sitecustomize the examples run under really blocks JAX, and the
+    JAX package where asked to."""
     blocker = tmp_path / "blocker"
     blocker.mkdir()
     (blocker / "sitecustomize.py").write_text(_BLOCKER)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(blocker), str(_REPO / "src")])}
+    env.pop("REPRO_TEST_BLOCKED", None)
     res = subprocess.run([sys.executable, "-c", "import jax"], capture_output=True, text=True,
-                         timeout=60, env={**os.environ, "PYTHONPATH": str(blocker)})
+                         timeout=60, env=env)
     assert res.returncode != 0 and "blocked: jax" in res.stderr
+    res = subprocess.run([sys.executable, "-c", "import repro.core"], capture_output=True,
+                         text=True, timeout=60, env={**env, "REPRO_TEST_BLOCKED": "jax,repro"})
+    assert res.returncode != 0 and "blocked: repro" in res.stderr
 
 
 def test_train_lm_torch_tiny(tmp_path):
@@ -80,7 +90,8 @@ def test_train_lm_torch_restarts_after_a_fault(tmp_path):
 
 
 def test_pipeline_training_torch(tmp_path):
-    out = _run(tmp_path, "pipeline_training_torch.py", "--device", "cpu")
+    out = _run(tmp_path, "pipeline_training_torch.py", "--device", "cpu",
+               blocked=("jax", "jaxlib", "repro"))
     assert "split 8 layers into [2, 2, 2, 2]" in out
     first, last = map(float, re.search(
         r"pipeline training \(4 stage\(s\), 4 microbatches, cpu\): loss ([\d.]+) -> ([\d.]+)",
@@ -89,7 +100,8 @@ def test_pipeline_training_torch(tmp_path):
 
 
 def test_quickstart_torch(tmp_path):
-    out = _run(tmp_path, "quickstart_torch.py", "--device", "cpu")
+    out = _run(tmp_path, "quickstart_torch.py", "--device", "cpu",
+               blocked=("jax", "jaxlib", "repro"))
     assert "on 64 H100 cards" in out and "valid: True" in out
     first, last = map(float, re.search(r"8 steps: loss ([\d.]+) -> ([\d.]+)", out).groups())
     assert out.rstrip().endswith("done.") and last < first
@@ -99,5 +111,6 @@ def test_quickstart_torch(tmp_path):
                                     "quickstart_torch.py"])
 def test_example_imports_nothing_of_jax_and_defaults_to_the_card(script):
     src = (_REPO / "examples" / script).read_text()
-    assert not re.search(r"^\s*(import jax|from jax)", src, re.MULTILINE)
+    assert not re.search(r"^\s*(import jax|from jax|import repro\.|from repro |from repro\.)",
+                         src, re.MULTILINE)
     assert 'default="cuda"' in src

@@ -41,7 +41,15 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.launch.steps", "repro_torch.models.shards",
                  "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
                  "repro_torch.kernels.cost", "repro_torch.runtime.pipeline",
-                 "repro_torch.core.platform", "repro_torch.scenario.events"):
+                 "repro_torch.core.platform", "repro_torch.scenario.events",
+                 "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.tracer",
+                 "repro_torch.obs.export", "repro_torch.core", "repro_torch.core.counters",
+                 "repro_torch.core.dag", "repro_torch.core.makespan",
+                 "repro_torch.core.memdag", "repro_torch.core.partitioner",
+                 "repro_torch.core.incremental", "repro_torch.core.baseline",
+                 "repro_torch.core.heuristic", "repro_torch.core.scheduler",
+                 "repro_torch.core.workflows", "repro_torch.core.modelgraph",
+                 "repro_torch.core.autoshard"):
         assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -16,8 +16,9 @@ its model), ``steps_train``, ``steps_rwkv_train``, ``jamba_train``,
 reads), ``production_dryrun``, ``pipeline``, and the sliding window's:
 ``kernel_window`` and ``backward_window`` (phases 2 and 8's windowed
 rows), ``mixtral`` (phase 15 with its 32k prefill), ``mixtral_window``
-(its f32 check and training step), ``train_lm_example`` (phase 28a); and
-``flash_ab``, which times the tensor-core flash kernels of other versions
+(its f32 check and training step), ``train_lm_example`` (phase 28a);
+``scheduler`` (phase 29, after the prefill of phases 4 and 12 on full
+llama3_8b and olmoe_1b_7b, whose rows it reads); and ``flash_ab``, which times the tensor-core flash kernels of other versions
 of ``csrc/flash_attention.cu`` against the current one (below).
 ``--vision-cut LAYERS PERIOD`` trains vision at another depth and
 ``cross_attn_period`` than ``chip_smoke.VISION_TRAIN_CUT``.  The step
@@ -56,7 +57,7 @@ import torch  # noqa: E402
 PHASES = ("steps_prefill", "steps_decode", "steps_train", "steps_rwkv_train",
           "jamba_train", "vision_train", "dryrun_steps", "production_dryrun", "pipeline",
           "kernel_window", "backward_window", "mixtral", "mixtral_window", "train_lm_example",
-          "flash_ab")
+          "scheduler", "flash_ab")
 # flash_ab's (b, s, hq, hkv, hd, causal): llama3_8b's, olmoe_1b_7b's and
 # seamless_m4t_v2's layers at their training length
 AB_SHAPES = [(1, 4096, 32, 8, 128, True), (1, 4096, 16, 16, 128, True),
@@ -168,7 +169,8 @@ def main(argv=None) -> int:
     if args.vision_cut:
         cs.VISION_TRAIN_CUT = dict(n_layers=args.vision_cut[0],
                                    cross_attn_period=args.vision_cut[1])
-    print(cs.phase_env(), flush=True)
+    smi = cs.phase_env()
+    print(smi, flush=True)
     cs.phase_build()
     llama, rwkv = cs.get_config("llama3_8b"), cs.get_config("rwkv6_1b6")
     mesh = cs.make_local_mesh(1, 1)
@@ -182,6 +184,15 @@ def main(argv=None) -> int:
 
     def train():
         held["train"] = cs.phase_steps_train(llama, mesh, args.trainer_step_s)
+
+    def scheduler():
+        rows = {}
+        for arch in ("llama3_8b", "olmoe_1b_7b"):
+            model = cs.LM(cs.get_config(arch), seed=cs.SEED, device="cuda")
+            rows[arch] = cs.phase_prefill(model)
+            del model
+            cs.free()
+        cs.phase_scheduler(smi, rows)
     runs = {"steps_prefill": prefill,
             "steps_decode": decode,
             "steps_train": train,
@@ -199,6 +210,7 @@ def main(argv=None) -> int:
             "mixtral": lambda: cs.phase_mixtral(cs.get_config("mixtral_8x7b")),
             "mixtral_window": lambda: cs.phase_mixtral_window(cs.get_config("mixtral_8x7b")),
             "train_lm_example": cs.phase_train_lm_example,
+            "scheduler": scheduler,
             "flash_ab": lambda: flash_ab(args.ab_source)}
     failed = 0
     for name in args.phases:
