@@ -286,7 +286,29 @@ a non-zero exit if it fails:
                mixtral_8x7b at that shape infeasible on one card (``plan``
                gives None, ``Scheduler.schedule`` an ``Infeasibility`` with
                its stage and reason) and in 2 valid stages on two
-30. kernels    the card's nvidia-smi line again, one JSON line listing every
+30. sim        the simulator, the scenario runner and ``rescale_plan``
+               (``repro_torch.sim`` / ``scenario`` / ``runtime.elastic``,
+               host code) on the card's host.  (a) Each of phase 29's 14
+               schedules replayed: contention-free, bit-equal to its
+               analytic makespan with ``exact_anchor``; fair-share at or
+               above it (the ratio); a lognormal jitter envelope (0.2, 16
+               replicas, seed 0) over the makespan, a second call's
+               makespans equal; ``validate_mapping(memory_trace=True)``
+               clean and the trace feasible; each call's wall seconds.
+               (b) At phase 4's 2 x 4096 prefill through ``rescale_plan``:
+               mixtral_8x7b on 3 cards (2 stages healthy; losing {0} at 0
+               feasible in 2; losing {1, 2} a structured infeasibility with
+               the old plan kept; losing {0} mid-step with
+               ``pinned-warm-start`` feasible with one migration and a
+               valid residual plan, the stitched makespan beside the
+               healthy step); llama3_8b on 2 cards losing {0}: one valid
+               stage, its GB and estimated seconds beside phase 4's
+               measured ones (no limit); phase 29's 2-stage mixtral plan
+               replayed under both comm models.  (c)
+               ``examples/elastic_serving_torch.py`` on the card, a process
+               of its own with its own time limit: exit 0, the migration
+               and the stitched Gantt, the flash launches of its prefill
+31. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel (the flash forward also at olmoe_1b_7b's,
                jamba_15_large's, llama32_vision_90b's and seamless_m4t_v2's
                shapes and the tensor-core backward at olmoe_1b_7b's and
@@ -349,8 +371,9 @@ from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.rwkv import wkv_chunked  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine  # noqa: E402
 from repro_torch.runtime import (FailureInjector, Request, ServeLoop, Trainer,  # noqa: E402
-                                 TrainerConfig, pipeline_apply, run_with_restarts,
-                                 stack_stage_params)
+                                 TrainerConfig, pipeline_apply, rescale_plan,
+                                 run_with_restarts, stack_stage_params)
+from repro_torch.sim import simulate  # noqa: E402
 
 # the modules; the package's ``flash_attention`` and ``rwkv_wkv`` are the
 # layout wrappers
@@ -450,6 +473,10 @@ MIXTRAL_F32_LAYERS = 2
 MIXTRAL_TRAIN_LAYERS = 1
 # examples/train_lm_torch.py --preset tiny on the card (phase 28a)
 TRAIN_LM_EXAMPLE_TIMEOUT_S = 300
+# phase 30: the jitter envelope of each replay (lognormal sigma, replicas,
+# seed), and examples/elastic_serving_torch.py's time limit
+SIM_JITTER = (0.2, 16, 0)
+ELASTIC_EXAMPLE_TIMEOUT_S = 300
 # olmoe_1b_7b: full depth for serving; 6 of 16 layers for training (2.72 B
 # parameters: 43.6 GB of params, grads and AdamW state)
 OLMOE_TRAIN_LAYERS = 6
@@ -3502,9 +3529,10 @@ def phase_pipeline(cfg_full) -> dict:
     return row
 
 
-def schedule_row(wf, platform, algorithm: str) -> dict:
+def schedule_row(wf, platform, algorithm: str) -> tuple[dict, object]:
     """One ``schedule()`` of ``wf`` and a rerun: feasible, valid, and the
-    rerun's makespan, blocks and processors bit-equal to the first run's."""
+    rerun's makespan, blocks and processors bit-equal to the first run's.
+    Returns the row and the first run's report."""
     t0 = time.perf_counter()
     rep = schedule(wf, platform, algorithm=algorithm)
     wall_s = time.perf_counter() - t0
@@ -3521,18 +3549,23 @@ def schedule_row(wf, platform, algorithm: str) -> dict:
           f"not {rep.makespan!r} with the same blocks")
     return dict(makespan=rep.makespan, k_used=rep.summary.k_used,
                 k_prime=rep.summary.k_prime, sweep_points=len(rep.sweep), wall_s=wall_s,
-                rerun_wall_s=rerun_s, rerun_bit_equal=same)
+                rerun_wall_s=rerun_s, rerun_bit_equal=same), rep
 
 
 def phase_scheduler(smi: str, prefill_rows: dict) -> dict:
     """Phase 29: the paper's scheduler on the card's host, then its plan of
     the port's models against what phases 4 and 12 measured on the card
-    (``prefill_rows``: arch -> that phase's row)."""
+    (``prefill_rows``: arch -> that phase's row).  Returns the rows, the 14
+    schedule reports by (family, algorithm) with their workflows, and
+    mixtral_8x7b's two-card plan, for phase 30."""
     platform = default_cluster()
-    families = {}
+    families, reports = {}, {}
     for family in FAMILIES:
         wf = generate_workflow(family, SCHED_N, seed=SCHED_SEED, platform=platform)
-        row = {algo: schedule_row(wf, platform, algo) for algo in ("dag_het_part", "dag_het_mem")}
+        row = {}
+        for algo in ("dag_het_part", "dag_het_mem"):
+            row[algo], rep = schedule_row(wf, platform, algo)
+            reports[(family, algo)] = (wf, rep)
         row["dag_het_mem_over_dag_het_part"] = (row["dag_het_mem"]["makespan"]
                                                 / row["dag_het_part"]["makespan"])
         emit("scheduler", family=family, tasks=wf.n, seed=SCHED_SEED, platform=platform.name,
@@ -3577,7 +3610,135 @@ def phase_scheduler(smi: str, prefill_rows: dict) -> dict:
                nvidia_smi=smi)
     emit("plan_mixtral", **row)
     plans["mixtral_8x7b"] = row
-    return {"families": families, "plans": plans}
+    return {"families": families, "plans": plans, "reports": reports, "mixtral_plan": p}
+
+
+def wall(fn):
+    """``fn()`` and its wall seconds on the host."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def replay_row(wf, rep, smi: str) -> dict:
+    """Phase 30 (a): one of phase 29's schedules through the simulator."""
+    res = rep.best
+    cf, cf_s = wall(lambda: simulate(res))
+    check(cf.makespan == cf.analytic_makespan == rep.makespan and cf.exact_anchor,
+          f"{wf.name}: the contention-free replay {cf.makespan!r} is not the analytic "
+          f"makespan {rep.makespan!r} (exact_anchor {cf.exact_anchor})")
+    fs, fs_s = wall(lambda: simulate(res, comm="fair-share"))
+    check(fs.makespan >= cf.makespan,
+          f"{wf.name}: fair-share {fs.makespan!r} under contention-free {cf.makespan!r}")
+    amount, replicas, seed = SIM_JITTER
+    jitter = dict(jitter=amount, replicas=replicas, seed=seed, memory=False)
+    env, env_s = wall(lambda: simulate(res, **jitter).envelope)
+    again = simulate(res, **jitter).envelope
+    check(again.makespans == env.makespans, f"{wf.name}: a second jitter replay differs")
+    errors, trace_s = wall(lambda: validate_mapping(wf, res, memory_trace=True))
+    check(errors == [] and cf.memory.feasible,
+          f"{wf.name}: memory trace: {errors[:3]} (feasible {cf.memory.feasible})")
+    return dict(makespan=cf.makespan, exact_anchor=cf.exact_anchor,
+                fair_share_over_contention_free=fs.makespan / cf.makespan,
+                envelope_over_makespan={"lo": env.lo / cf.makespan, "hi": env.hi / cf.makespan,
+                                        "mean": env.mean / cf.makespan},
+                envelope_rerun_equal=True, memory_trace_violations=len(errors),
+                wall_s={"contention_free": cf_s, "fair_share": fs_s,
+                        f"jitter_{replicas}": env_s, "memory_trace": trace_s},
+                nvidia_smi=smi)
+
+
+def rescale_row(report) -> dict:
+    p, q = report.old_plan, report.new_plan
+    infeas = report.infeasibility
+    return dict(feasible=report.feasible, stages_before=p and p.n_stages,
+                stages_after=q and q.n_stages, valid_after=q and q.valid,
+                est_step_before_s=report.est_step_before_s,
+                est_step_after_s=report.est_step_after_s, moved_tasks=report.moved_tasks,
+                migrations=len(report.timeline.migrations),
+                stitched_makespan_s=report.timeline.makespan,
+                infeasibility=infeas and {"stage": infeas.stage, "reason": infeas.reason})
+
+
+def phase_replan(smi: str, llama_prefill: dict, mixtral_plan) -> dict:
+    """Phase 30 (b): the port's models replanned after a lost card."""
+    b, s = PREFILL
+    shape = ShapeConfig("chip_smoke_prefill", seq_len=s, global_batch=b, kind="prefill")
+    mixtral, three = get_config("mixtral_8x7b"), h100_fleet_si({"h100": 3})
+    rows = {}
+    healthy, rows_s = wall(lambda: rescale_plan(mixtral, shape, three, {0}))
+    rows["mixtral_3_lose_0"] = dict(rescale_row(healthy), wall_s=rows_s)
+    check(healthy.feasible and healthy.old_plan.n_stages == 2
+          and healthy.new_plan.n_stages == 2 and healthy.new_plan.valid,
+          f"mixtral_8x7b on 3 cards losing {{0}}: {rows['mixtral_3_lose_0']}")
+    lost, rows_s = wall(lambda: rescale_plan(mixtral, shape, three, {1, 2}))
+    rows["mixtral_3_lose_1_2"] = dict(rescale_row(lost), wall_s=rows_s)
+    check(not lost.feasible and lost.old_plan is not None and lost.infeasibility is not None
+          and bool(lost.infeasibility.stage) and bool(lost.infeasibility.reason),
+          f"mixtral_8x7b on 3 cards losing {{1, 2}}: {rows['mixtral_3_lose_1_2']}")
+    at = 0.5 * healthy.est_step_before_s
+    mid, rows_s = wall(lambda: rescale_plan(mixtral, shape, three, {0}, at=at,
+                                            policy="pinned-warm-start"))
+    rows["mixtral_3_lose_0_mid_step"] = dict(rescale_row(mid), wall_s=rows_s, at_s=at,
+                                             healthy_est_step_s=healthy.est_step_before_s)
+    check(mid.feasible and len(mid.timeline.migrations) == 1 and mid.new_plan.valid,
+          f"mixtral_8x7b on 3 cards losing {{0}} mid-step: {rows['mixtral_3_lose_0_mid_step']}")
+    llama, rows_s = wall(lambda: rescale_plan(get_config("llama3_8b"), shape,
+                                              h100_fleet_si({"h100": 2}), {0}))
+    row = dict(rescale_row(llama), wall_s=rows_s)
+    check(llama.feasible and llama.new_plan.n_stages == 1 and llama.new_plan.valid,
+          f"llama3_8b on 2 cards losing {{0}}: {row}")
+    measured_s = llama_prefill["seconds"][-1]
+    row.update(stage_gb=llama.new_plan.stage_memory[0] / 1e9,
+               measured_peak_gb=llama_prefill["peak_memory_gb"], measured_prefill_s=measured_s)
+    row["stage_gb_over_measured_peak"] = row["stage_gb"] / row["measured_peak_gb"]
+    row["est_step_s_over_measured"] = llama.est_step_after_s / measured_s
+    rows["llama_2_lose_0"] = row
+    replays = {comm: simulate(mixtral_plan.mapping, comm=comm, memory=False).makespan
+               for comm in ("contention-free", "fair-share")}
+    rows["mixtral_2_card_replay"] = dict(est_step_s=mixtral_plan.est_step_s, **replays)
+    check(replays["contention-free"] == mixtral_plan.est_step_s
+          and replays["fair-share"] >= replays["contention-free"],
+          f"mixtral_8x7b's 2-card plan replayed: {rows['mixtral_2_card_replay']}")
+    for name, row in rows.items():
+        emit("replan", case=name, batch=b, seq=s, nvidia_smi=smi, **row)
+    return rows
+
+
+def phase_elastic_example() -> dict:
+    """Phase 30 (c): ``examples/elastic_serving_torch.py`` on the card, as
+    a process of its own with its own time limit: it must exit 0 and print
+    the migration, the stitched Gantt and its prefill's flash launches."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    argv = [sys.executable, str(ROOT / "examples" / "elastic_serving_torch.py")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=ELASTIC_EXAMPLE_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    found = re.search(r"^flash launches: (\{.*\})$", proc.stdout, re.MULTILINE)
+    launches = json.loads(found.group(1).replace("'", '"')) if found else None
+    row = dict(argv=["examples/elastic_serving_torch.py"], rc=proc.returncode, wall_s=wall_s,
+               flash_launches=launches, migration=re.findall(r"^migration: .*$", proc.stdout,
+                                                             re.MULTILINE),
+               stdout_tail=proc.stdout[-1200:], stderr_tail=proc.stderr[-800:])
+    emit("elastic_example", **row)
+    check(proc.returncode == 0 and row["migration"] and "▼" in proc.stdout
+          and "first token agrees with the prefill: True" in proc.stdout
+          and bool(launches) and sum(launches.values()) > 0,
+          f"examples/elastic_serving_torch.py on the card: {row}")
+    return row
+
+
+def phase_sim(smi: str, sched: dict, llama_prefill: dict) -> dict:
+    """Phase 30: phase 29's schedules replayed (a), the port's models
+    replanned after a lost card (b), the elastic example on the card (c)."""
+    replays = {}
+    for (family, algo), (wf, rep) in sched["reports"].items():
+        replays[(family, algo)] = row = replay_row(wf, rep, smi)
+        emit("sim_replay", family=family, algorithm=algo, **row)
+    return {"replays": replays,
+            "replan": phase_replan(smi, llama_prefill, sched["mixtral_plan"]),
+            "example": phase_elastic_example()}
 
 
 def free() -> None:
@@ -3798,7 +3959,8 @@ def main() -> int:
     pipeline = phase_pipeline(cfg)
     free()
     phase_train_lm_example()
-    phase_scheduler(smi, {"llama3_8b": llama_prefill, "olmoe_1b_7b": olmoe_prefill})
+    sched = phase_scheduler(smi, {"llama3_8b": llama_prefill, "olmoe_1b_7b": olmoe_prefill})
+    phase_sim(smi, sched, llama_prefill)
 
     olmoe, jamba_id, vision_id, seamless = ("olmoe_1b_7b", "jamba_15_large",
                                             "llama32_vision_90b", "seamless_m4t_v2")

@@ -26,14 +26,16 @@ to the reference's on the same inputs (``tests/test_torch_sched_parity.py``).
 * :mod:`repro_torch.core.counters` — perf-cache counters surfaced as
   ``ScheduleReport.cache_stats``.
 
-Spans and metrics come from :mod:`repro_torch.obs`.  The layers the
-reference builds on top of this package (discrete-event simulation,
-scenario timelines, the service loop, throughput and the richer
-objectives) are later parts of the port (``ROADMAP.md`` queue 1).  Until
-they land, the pipeline stages that need them (``simulate``,
-``throughput``, ``reliability``, ``energy``) and
-``validate_mapping(..., memory_trace=True)`` raise
-``NotImplementedError`` where the reference would import them.
+Spans and metrics come from :mod:`repro_torch.obs`.  The layers built on
+top of this package: the discrete-event replay (:mod:`repro_torch.sim`,
+the ``simulate`` stage and ``validate_mapping(..., memory_trace=True)``),
+the reliability and energy objectives (:mod:`repro_torch.objectives`, the
+``reliability`` and ``energy`` stages) and scenario timelines with
+replanning (:mod:`repro_torch.scenario`, and
+:func:`repro_torch.runtime.rescale_plan` on top).  Throughput and the
+service loop are later parts of the port (``ROADMAP.md`` queue 1): until
+they land, the ``throughput`` stage raises ``NotImplementedError`` where
+the reference would import its package.
 
 Scheduling API
 --------------

@@ -15,8 +15,7 @@ partition into a :class:`PartitionPlan`:
 * per-stage memory requirements (the MemDag peak of each block).
 
 Elastic rescale (node loss) = re-run ``plan`` on ``platform.without``,
-then remap (the reference's ``runtime/elastic.py``, a later part of the
-port).
+then remap — see ``repro_torch.runtime.elastic``.
 """
 from __future__ import annotations
 
@@ -36,8 +35,8 @@ __all__ = ["PartitionPlan", "default_microbatches", "plan"]
 
 def default_microbatches(shape: ShapeConfig) -> int:
     """The planning default: 8 for training shapes (pipelined working
-    set), 1 otherwise.  ``rescale_plan`` (a later part of the port) shares
-    it so pre/post-failure plans lower the same DAG."""
+    set), 1 otherwise.  Shared with :func:`repro_torch.runtime.elastic.
+    rescale_plan` so pre/post-failure plans lower the same DAG."""
     return 8 if shape.kind == "train" else 1
 
 

@@ -199,11 +199,15 @@ def validate_mapping(
     * injective block→processor mapping,
     * every block's memory requirement within its processor's memory.
 
-    ``memory_trace=True`` replays the schedule through the simulator's
-    memory tracker, which is not ported yet: it raises
-    ``NotImplementedError`` where the reference imports the tracker (after
-    the structural checks; a quotient that cannot be simulated gets a
-    note instead, as in the reference).
+    ``memory_trace=True`` additionally replays the schedule through the
+    simulator's memory tracker (:mod:`repro_torch.sim`) and reports every
+    *transient* violation with its first time-point and processor.
+    Block sums are priced with the best traversal known (min of witness
+    and greedy re-derivation), while the trace replays the traversal
+    execution would actually use — so a plan whose witness order
+    overflows is caught here even when a better traversal makes the
+    block sum pass.  Trace checking requires the structural constraints
+    to hold and is skipped (with a note) when they do not.
 
     ``r_{V_i}`` is the *minimum* peak over traversals; any witness order
     (e.g. the baseline's packing traversal or the heuristic's composed
@@ -272,8 +276,15 @@ def validate_mapping(
                 "(cyclic or unassigned blocks)"
             )
         else:
-            # where the reference imports the simulator's memory tracker
-            raise NotImplementedError(
-                "validate_mapping(memory_trace=True) needs repro_torch.sim, "
-                "which is not ported yet (ROADMAP.md queue 1 item 1)")
+            # deferred import: sim builds on core
+            from repro_torch.sim import trace_memory
+
+            trace = trace_memory(result, result.platform)
+            for v in trace.violations:
+                errors.append(
+                    f"transient memory violation at t={v.time:.6g} on "
+                    f"processor {v.proc} (block {v.vertex}, task "
+                    f"{v.task}): occupancy {v.occupancy:.6g} exceeds "
+                    f"memory {v.capacity:.6g}"
+                )
     return errors

@@ -28,9 +28,8 @@ Paper-step ↔ stage-name map::
     Step 4  swap         best-improvement block swaps (Algorithm 5)
     Step 4  idle_moves   critical-path moves to faster idle processors
     §4.1    pack         DagHetMem min-peak traversal packing
-    —       simulate     discrete-event replay, off by default
-                         (``SchedulerConfig(simulate=True)``); raises
-                         until the simulator is ported
+    —       simulate     discrete-event replay (repro_torch.sim), off by
+                         default (``SchedulerConfig(simulate=True)``)
 
 Determinism: every stage is deterministic, and the sweep reduction
 scans results in sweep order with a strict ``<``, so ``workers=N`` and
@@ -49,7 +48,7 @@ from typing import Callable, Protocol, Sequence, runtime_checkable
 
 from repro_torch.obs import JsonlSink, ObsConfig, span_events, write_chrome_trace
 from repro_torch.obs import tracer as _trc
-from repro_torch.obs.metrics import METRICS, Histogram
+from repro_torch.obs.metrics import METRICS, RATIO_BOUNDARIES, Histogram
 from repro_torch.obs.tracer import trace_span
 
 _log = logging.getLogger(__name__)
@@ -708,11 +707,12 @@ def _not_ported(stage: str, package: str, item: int) -> str:
 
 
 class SimulateStage:
-    """Post-pipeline discrete-event replay of the mapping.  Off by default
-    (``SchedulerConfig(simulate=True)`` enables it).  The simulator is not
-    ported yet: on a feasible attempt the stage raises
-    ``NotImplementedError`` where the reference imports it; an attempt
-    that found no mapping returns first, as in the reference."""
+    """Post-pipeline replay: attach a :class:`repro_torch.sim.SimReport` to
+    the mapping (``extras["sim"]``).  Off by default
+    (``SchedulerConfig(simulate=True)`` enables it); runs once per
+    sweep point, so enable it together with a narrow k' sweep or read
+    ``ScheduleReport.sim`` for the winner only.  Options come from
+    ``SchedulerConfig.sim_options`` (``comm``, ``jitter``, ...)."""
 
     name = "simulate"
     toggle = "simulate"
@@ -721,7 +721,10 @@ class SimulateStage:
         _materialize_result(ctx, ctx.k_prime)
         if ctx.result is None:
             return
-        raise NotImplementedError(_not_ported("simulate", "sim", 1))
+        from repro_torch import sim  # deferred: core must not require sim
+
+        ctx.result.extras["sim"] = sim.simulate(
+            ctx.result, ctx.platform, **(ctx.sim_options or {}))
 
 
 class ThroughputStage:
@@ -737,18 +740,24 @@ class ThroughputStage:
         _materialize_result(ctx, ctx.k_prime)
         if ctx.result is None:
             return
-        raise NotImplementedError(_not_ported("throughput", "throughput", 3))
+        raise NotImplementedError(_not_ported("throughput", "throughput", 1))
 
 
 class ReliabilityStage:
-    """Reliability-weighted makespan pricing from per-block exposure time
-    and each processor's exponential failure rate.
+    """Reliability-weighted makespan pricing (:mod:`repro_torch.objectives`):
+    success probability of the mapped schedule from per-block exposure
+    time × its processor's exponential failure rate
+    (``extras["reliability"]``, a
+    :class:`~repro_torch.objectives.ReliabilityReport`).
 
-    **Bit-inert** without a failure model: when ``platform.failure_rates``
-    is empty the stage returns without touching the result, so the
-    makespan pipeline's output is unchanged.  With a failure model it
-    needs the objectives package, which is not ported yet, and raises
-    ``NotImplementedError`` where the reference imports it.
+    **Bit-inert** without a failure model: when
+    ``platform.failure_rates`` is empty the stage returns without
+    touching the result, so the makespan pipeline's output is
+    unchanged.  Each attempt's weighted makespan / success probability
+    land as single-observation histograms in the sweep point's
+    ``metrics`` block (same contract as the throughput stage), so
+    :func:`repro_torch.objectives.plan_reliability` can pick the
+    weighted-makespan winner per k'.
     """
 
     name = "reliability"
@@ -760,15 +769,32 @@ class ReliabilityStage:
             return
         if not ctx.platform.failure_rates:
             return  # no model -> bit-inert
-        raise NotImplementedError(_not_ported("reliability", "objectives", 3))
+        from repro_torch import objectives as _obj  # deferred, like simulate
+
+        rel = _obj.schedule_reliability(ctx.result, ctx.platform)
+        ctx.result.extras["reliability"] = rel
+        METRICS.counter("objective_reliability_evals")
+        METRICS.observe("objective_rel_weighted_ms", rel.weighted_makespan)
+        METRICS.observe("objective_success_prob", rel.success_prob,
+                        boundaries=RATIO_BOUNDARIES)
 
 
 class EnergyStage:
-    """Energy minimization under a reliability floor (per-block DVFS speed
-    choice).  **Bit-inert** without a power model (``platform.power``
-    empty).  With a power model it needs the objectives package, which is
-    not ported yet, and raises ``NotImplementedError`` where the reference
-    imports it.
+    """Energy minimization under a reliability floor
+    (:mod:`repro_torch.objectives`): per-block DVFS speed choice minimizing
+    static+dynamic energy while keeping the schedule's success
+    probability above ``objective_options["reliability_floor"]``
+    (``extras["energy"]``, an :class:`~repro_torch.objectives.EnergyReport`).
+
+    Options come from ``SchedulerConfig.objective_options``
+    (``reliability_floor``, ``speed_levels``).  A floor the all-nominal
+    plan cannot reach is a structured :class:`StageFailure` with stage
+    name ``"objective"`` — the k' attempt is infeasible under the
+    reliability constraint even though a mapping exists.  **Bit-inert**
+    without a power model (``platform.power`` empty).  The attempt's
+    total energy lands as a single-observation histogram so
+    :func:`repro_torch.objectives.plan_energy` can pick the energy-minimizing
+    attempt per k'.
     """
 
     name = "energy"
@@ -780,7 +806,29 @@ class EnergyStage:
             return
         if not ctx.platform.power:
             return  # no model -> bit-inert
-        raise NotImplementedError(_not_ported("energy", "objectives", 3))
+        from repro_torch import objectives as _obj  # deferred, like simulate
+
+        opts = dict(ctx.objective_options or {})
+        floor = opts.get("reliability_floor")
+        levels = opts.get("speed_levels", (1.0,))
+        plan = _obj.energy_plan(ctx.result, ctx.platform,
+                                reliability_floor=floor,
+                                speed_levels=levels)
+        if plan is None:
+            METRICS.counter("objective_energy_infeasible")
+            ctx.failure = StageFailure(
+                "objective",
+                f"reliability floor {floor:.6g} unreachable at "
+                f"k'={ctx.k_prime}: even all-nominal speeds miss it",
+                None,
+            )
+            ctx.result = None
+            return
+        ctx.result.extras["energy"] = plan
+        METRICS.counter("objective_energy_evals")
+        METRICS.observe("objective_energy_total", plan.total)
+        METRICS.observe("objective_success_prob", plan.reliability,
+                        boundaries=RATIO_BOUNDARIES)
 
 
 _STAGES: dict[str, Stage] = {}
@@ -874,9 +922,12 @@ class SchedulerConfig:
     execution modes — ``verbose`` merely installs a default printer on
     the same channel.  ``stages`` overrides the algorithm's registered
     pipeline with an explicit stage-name sequence.  ``simulate``
-    enables the post-pipeline discrete-event replay stage, configured by
-    the ``sim_options`` keyword dict; the simulator is not ported yet, so
-    a feasible sweep point then raises ``NotImplementedError``.  ``obs`` is the run's
+    enables the post-pipeline discrete-event replay stage
+    (:mod:`repro_torch.sim`), configured by the ``sim_options`` keyword dict
+    (``comm``, ``jitter``, ``replicas``, ``memory``, ...); it runs once
+    per sweep point and attaches a :class:`repro_torch.sim.SimReport` to
+    each mapping's ``extras["sim"]`` — read ``ScheduleReport.sim`` for
+    the winner's.  ``obs`` is the run's
     :class:`~repro_torch.obs.ObsConfig`: ``enabled`` turns on span tracing
     (run → sweep point → stage, incl. pool workers), ``trace_path`` /
     ``sink`` export a Chrome trace / JSONL span log at the end of the
@@ -1499,8 +1550,11 @@ def schedule(wf: Workflow, platform: Platform,
     """One-call convenience: ``Scheduler(config, **kw).schedule(...)``.
 
     Keyword overrides are :class:`SchedulerConfig` fields — commonly
-    ``algorithm=``, ``kprime=`` and ``workers=``::
+    ``algorithm=``, ``kprime=``, ``workers=``, ``simulate=`` and
+    ``sim_options=`` (the keyword dict handed to the simulate stage:
+    ``comm=``, ``jitter=``, ``replicas=``, ``memory=``, ...)::
 
-        schedule(wf, platform, algorithm="dag_het_mem").makespan
+        schedule(wf, platform, simulate=True,
+                 sim_options={"comm": "fair-share"}).sim
     """
     return Scheduler(config, **overrides).schedule(wf, platform)

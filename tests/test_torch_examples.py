@@ -1,14 +1,14 @@
 """The port's examples run on the CPU with JAX blocked.
 
 Each of ``examples/train_lm_torch.py`` (smallest preset),
-``pipeline_training_torch.py`` (4 gloo stage processes) and
-``quickstart_torch.py`` runs with ``--device cpu`` in a subprocess with its
-own time limit.  A ``sitecustomize`` on the subprocess's path blocks
+``pipeline_training_torch.py`` (4 gloo stage processes),
+``quickstart_torch.py`` and ``elastic_serving_torch.py`` runs with
+``--device cpu`` in a subprocess with its own time limit.  A ``sitecustomize`` on the subprocess's path blocks
 ``jax`` and ``jaxlib`` in it and in every process it spawns, so an example
-that reached JAX would fail with an ImportError.  For the two examples
-that schedule (``pipeline_training_torch.py``, ``quickstart_torch.py``) it
-blocks the JAX package ``repro`` as well: they plan through the port's own
-scheduler (``repro_torch.core``).
+that reached JAX would fail with an ImportError.  For the examples that
+schedule (``pipeline_training_torch.py``, ``quickstart_torch.py``,
+``elastic_serving_torch.py``) it blocks the JAX package ``repro`` as well:
+they plan through the port's own scheduler (``repro_torch.core``).
 """
 import os
 import re
@@ -107,8 +107,37 @@ def test_quickstart_torch(tmp_path):
     assert out.rstrip().endswith("done.") and last < first
 
 
+def test_elastic_serving_torch(tmp_path):
+    """The replan's printed step times are JAX's ``rescale_plan`` on the
+    same 64 processors (3.72 ms before, 1.87 ms after, 3.73 ms stitched),
+    and the reduced mixtral's decode starts where its prefill ends."""
+    from _torch_parity import platform_as
+    from repro.configs import get_config, shape_by_name
+    from repro.core.autoshard import plan
+    from repro.runtime import rescale_plan
+    from repro_torch.core import h100_fleet_si
+
+    out = _run(tmp_path, "elastic_serving_torch.py", "--device", "cpu",
+               blocked=("jax", "jaxlib", "repro"))
+    jfleet = platform_as(h100_fleet_si({"h100": 56, "h100-degraded": 8}), "jax")
+    cfg, shape, kprime = get_config("mixtral_8x7b"), shape_by_name("decode_32k"), [8, 16, 32, 56]
+    t_fail = 0.5 * plan(cfg, shape, jfleet, kprime=kprime).est_step_s
+    ref = rescale_plan(cfg, shape, jfleet, failed=set(range(8)), at=t_fail,
+                       policy="pinned-warm-start", kprime=kprime)
+    for line in (f"est step before: {ref.est_step_before_s * 1e3:.2f} ms",
+                 f"est step after:  {ref.est_step_after_s * 1e3:.2f} ms",
+                 f"stitched finish: {ref.timeline.makespan * 1e3:.2f} ms",
+                 "est step before: 3.72 ms", "est step after:  1.87 ms",
+                 "stitched finish: 3.73 ms", "new plan valid:  True",
+                 f"migration: {ref.timeline.migrations[0].moved_tasks} moved, "
+                 f"{ref.timeline.migrations[0].displaced_tasks} displaced",
+                 "first token agrees with the prefill: True"):
+        assert line in out, line
+    assert "▼" in out and "generated: [[" in out
+
+
 @pytest.mark.parametrize("script", ["train_lm_torch.py", "pipeline_training_torch.py",
-                                    "quickstart_torch.py"])
+                                    "quickstart_torch.py", "elastic_serving_torch.py"])
 def test_example_imports_nothing_of_jax_and_defaults_to_the_card(script):
     src = (_REPO / "examples" / script).read_text()
     assert not re.search(r"^\s*(import jax|from jax|import repro\.|from repro |from repro\.)",

@@ -49,7 +49,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.core.incremental", "repro_torch.core.baseline",
                  "repro_torch.core.heuristic", "repro_torch.core.scheduler",
                  "repro_torch.core.workflows", "repro_torch.core.modelgraph",
-                 "repro_torch.core.autoshard"):
+                 "repro_torch.core.autoshard", "repro_torch.sim", "repro_torch.sim.rng",
+                 "repro_torch.sim.perturb", "repro_torch.sim.report", "repro_torch.sim.comm",
+                 "repro_torch.sim.engine", "repro_torch.sim.memory", "repro_torch.objectives",
+                 "repro_torch.scenario", "repro_torch.scenario.policies",
+                 "repro_torch.scenario.report", "repro_torch.scenario.runner",
+                 "repro_torch.scenario.fuzz", "repro_torch.runtime.elastic"):
         assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -5,9 +5,11 @@ for ``repro.core``: the flat Step 1 and Step 2 decision for decision equal
 to the scalar ones (``tests/test_step1_flat.py``, ``test_step2_flat.py``),
 ``IncrementalEvaluator`` against a full recompute after random mutation
 sequences (``test_incremental.py``), the ``Platform`` transforms and the
-paper's presets (``test_platform_transforms.py``); and the stages whose
-packages the port has not copied yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item, after the reference's early returns.  Every
+paper's presets (``test_platform_transforms.py``); the post-pipeline
+stages (``simulate``, ``reliability``, ``energy``) and the memory trace of
+``validate_mapping``; and the ``throughput`` stage, whose package the port
+has not copied yet, raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item, after the reference's early returns.  Every
 comparison of floats is ``==``.
 """
 import random
@@ -411,7 +413,7 @@ def test_paper_cluster_presets(preset, k, name):
     assert len(kinds) == (1 if name == "NoHet" else 6)
 
 
-# ------------------------------------------------- stages not ported yet
+# ------------------------------------------------- the post-pipeline stages
 def _small():
     plat = small_cluster()
     return generate_workflow("blast", 120, seed=2, platform=plat), plat
@@ -422,9 +424,7 @@ def _tiny_platform():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"simulate": True}, "queue 1 item 1"),
-    ({"algorithm": "dag_het_mem", "simulate": True}, "queue 1 item 1"),
-    ({"algorithm": "throughput"}, "queue 1 item 3"),
+    ({"algorithm": "throughput"}, "queue 1 item 1"),
 ])
 def test_stage_of_an_unported_package_raises(overrides, match):
     wf, plat = _small()
@@ -432,22 +432,34 @@ def test_stage_of_an_unported_package_raises(overrides, match):
         schedule(wf, plat, kprime=[4], **overrides)
 
 
-@pytest.mark.parametrize("algorithm,attach,match", [
-    ("reliability", lambda p: p.with_failure_rates({0: 1e-4}), "objectives.*queue 1 item 3"),
-    ("energy", lambda p: p.with_power({0: ProcPower(1.0, 2.0)}), "objectives.*queue 1 item 3"),
+@pytest.mark.parametrize("algorithm", ["dag_het_part", "dag_het_mem"])
+def test_simulate_stage_attaches_a_replay(algorithm):
+    """``simulate=True`` replays the winner: a contention-free replay
+    equal to the analytic makespan to the bit."""
+    wf, plat = _small()
+    rep = schedule(wf, plat, kprime=[4], algorithm=algorithm, simulate=True)
+    assert rep.sim is not None and rep.sim.exact_anchor
+    assert rep.sim.makespan == rep.makespan == rep.sim.analytic_makespan
+
+
+@pytest.mark.parametrize("algorithm,attach", [
+    ("reliability", lambda p: p.with_failure_rates({0: 1e-4})),
+    ("energy", lambda p: p.with_power({0: ProcPower(1.0, 2.0)})),
 ])
-def test_objective_stages_inert_without_a_model_and_raise_with_one(algorithm, attach, match):
-    """Without a failure (power) model the stage returns before the
-    reference's import, and the plan is the four-step heuristic's bit for
-    bit; with one it raises."""
+def test_objective_stages_inert_without_a_model_and_price_with_one(algorithm, attach):
+    """Without a failure (power) model the stage returns before it prices
+    anything, and the plan is the four-step heuristic's bit for bit; with
+    one it attaches its report."""
     wf, plat = _small()
     base = schedule(wf, plat, kprime=[4])
     rep = schedule(wf, plat, kprime=[4], algorithm=algorithm)
     assert rep.makespan == base.makespan
     assert rep.summary.block_of_task == base.summary.block_of_task
     assert rep.summary.proc_of_block == base.summary.proc_of_block
-    with pytest.raises(NotImplementedError, match=match):
-        schedule(wf, attach(plat), kprime=[4], algorithm=algorithm)
+    assert getattr(rep, algorithm) is None
+    modeled = schedule(wf, attach(plat), kprime=[4], algorithm=algorithm)
+    assert modeled.feasible and getattr(modeled, algorithm) is not None
+    assert modeled.makespan == base.makespan
 
 
 def test_unported_stages_return_first_on_an_infeasible_attempt():
@@ -457,12 +469,11 @@ def test_unported_stages_return_first_on_an_infeasible_attempt():
         assert not rep.feasible and rep.infeasibility.stage
 
 
-def test_memory_trace_raises_after_the_structural_checks():
+def test_memory_trace_replays_after_the_structural_checks():
     wf, plat = _small()
     rep = schedule(wf, plat, kprime=[4])
     assert validate_mapping(wf, rep.best) == []
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        validate_mapping(wf, rep.best, memory_trace=True)
+    assert validate_mapping(wf, rep.best, memory_trace=True) == []
     q = rep.best.quotient
     q.proc[next(iter(q.members))] = None       # unassigned: not simulable
     errors = validate_mapping(wf, rep.best, memory_trace=True)

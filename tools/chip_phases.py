@@ -18,8 +18,11 @@ reads), ``production_dryrun``, ``pipeline``, and the sliding window's:
 rows), ``mixtral`` (phase 15 with its 32k prefill), ``mixtral_window``
 (its f32 check and training step), ``train_lm_example`` (phase 28a);
 ``scheduler`` (phase 29, after the prefill of phases 4 and 12 on full
-llama3_8b and olmoe_1b_7b, whose rows it reads); and ``flash_ab``, which times the tensor-core flash kernels of other versions
-of ``csrc/flash_attention.cu`` against the current one (below).
+llama3_8b and olmoe_1b_7b, whose rows it reads); ``sim`` (phases 4, 12, 29
+and then 30: the replays of phase 29's schedules, the replans after a lost
+card beside phase 4's measured prefill, the elastic example on the card);
+and ``flash_ab``, which times the tensor-core flash kernels of other
+versions of ``csrc/flash_attention.cu`` against the current one (below).
 ``--vision-cut LAYERS PERIOD`` trains vision at another depth and
 ``cross_attn_period`` than ``chip_smoke.VISION_TRAIN_CUT``.  The step
 phases take the Trainer's step time they are set beside as
@@ -57,7 +60,7 @@ import torch  # noqa: E402
 PHASES = ("steps_prefill", "steps_decode", "steps_train", "steps_rwkv_train",
           "jamba_train", "vision_train", "dryrun_steps", "production_dryrun", "pipeline",
           "kernel_window", "backward_window", "mixtral", "mixtral_window", "train_lm_example",
-          "scheduler", "flash_ab")
+          "scheduler", "sim", "flash_ab")
 # flash_ab's (b, s, hq, hkv, hd, causal): llama3_8b's, olmoe_1b_7b's and
 # seamless_m4t_v2's layers at their training length
 AB_SHAPES = [(1, 4096, 32, 8, 128, True), (1, 4096, 16, 16, 128, True),
@@ -192,7 +195,11 @@ def main(argv=None) -> int:
             rows[arch] = cs.phase_prefill(model)
             del model
             cs.free()
-        cs.phase_scheduler(smi, rows)
+        return rows, cs.phase_scheduler(smi, rows)
+
+    def sim():
+        rows, sched = scheduler()
+        cs.phase_sim(smi, sched, rows["llama3_8b"])
     runs = {"steps_prefill": prefill,
             "steps_decode": decode,
             "steps_train": train,
@@ -211,6 +218,7 @@ def main(argv=None) -> int:
             "mixtral_window": lambda: cs.phase_mixtral_window(cs.get_config("mixtral_8x7b")),
             "train_lm_example": cs.phase_train_lm_example,
             "scheduler": scheduler,
+            "sim": sim,
             "flash_ab": lambda: flash_ab(args.ab_source)}
     failed = 0
     for name in args.phases:
