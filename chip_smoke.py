@@ -308,7 +308,41 @@ a non-zero exit if it fails:
                ``examples/elastic_serving_torch.py`` on the card, a process
                of its own with its own time limit: exit 0, the migration
                and the stitched Gantt, the flash launches of its prefill
-31. kernels    the card's nvidia-smi line again, one JSON line listing every
+31. throughput the throughput planner and the service loop
+               (``repro_torch.throughput`` / ``service``, host code) on the
+               card's host.  (a) Each of phase 29's seven n = 1000
+               workflows through ``plan_throughput`` (rate, replicas, k',
+               wall seconds); the identity anchor on its plan (one
+               instance at 0 replays to ``simulate``'s makespan and
+               horizon, to the bit); 64 Poisson instances at 0.8 x the rate
+               (seed 0, 64 000 tasks in one engine pass) with the summed
+               memory trace, its violations those the reference counts on
+               the same plan (``PIPELINED_VIOLATIONS``) and a rerun equal;
+               genome's ``saturation_sweep`` at 0.5, 0.8, 0.95 and 1.1 x its
+               rate with 64 instances: the reference's rows to the bit
+               (``GENOME_SATURATION``), achieved over offered falling rung
+               to rung.  (b) At phase 4's 2 x 4096 prefill on
+               ``h100_fleet_si({"h100": 4})``: ``plan_throughput`` of
+               ``build_model_graph`` of llama3_8b (4 replicas) and
+               mixtral_8x7b (2 replicas of a 2-stage plan), each with the
+               identity anchor; ``run_sustained`` of llama3_8b at 0.8 x its
+               rate with 64 instances twice through one ``PlanCache``:
+               ``cold`` then ``seeded``, every instance's arrival, dispatch
+               and finish equal; the plan rate over 4 / phase 4's measured
+               prefill seconds (no limit: the spec-rate model's error).
+               (c) ``run_service`` of the seven workflows submitted twice
+               each (a weight-2 tenant, a ``max_running=1`` one) and two
+               malformed payloads, the two last processors failing while a
+               job runs and a spare arriving later (``SERVICE_EVENTS``):
+               each of the 16 submissions in exactly one terminal status, a
+               plan-cache hit, a warm replan at the failure, the trace's
+               bytes equal on a rerun and with tracing on; planning wall
+               seconds by path.  (d) The examples
+               ``heterogeneous_scheduling_torch.py``,
+               ``multi_tenant_service_torch.py`` and
+               ``sustained_throughput_torch.py``, each a process of its own
+               with its own time limit: exit 0
+32. kernels    the card's nvidia-smi line again, one JSON line listing every
                ported kernel (the flash forward also at olmoe_1b_7b's,
                jamba_15_large's, llama32_vision_90b's and seamless_m4t_v2's
                shapes and the tensor-core backward at olmoe_1b_7b's and
@@ -351,7 +385,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import SHAPES, ShapeConfig, get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import flatten_tree, param_tree, tree_leaves, tree_map  # noqa: E402
-from repro_torch.core import (FAMILIES, Scheduler, SchedulerConfig,  # noqa: E402
+from repro_torch.core import (FAMILIES, Processor, Scheduler, SchedulerConfig,  # noqa: E402
                               default_cluster, generate_workflow, h100_fleet_si, schedule,
                               validate_mapping)
 from repro_torch.core.autoshard import default_microbatches, plan  # noqa: E402
@@ -373,7 +407,13 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosi
 from repro_torch.runtime import (FailureInjector, Request, ServeLoop, Trainer,  # noqa: E402
                                  TrainerConfig, pipeline_apply, rescale_plan,
                                  run_with_restarts, stack_stage_params)
+from repro_torch.obs import ObsConfig  # noqa: E402
+from repro_torch.scenario import ProcArrival, ProcFailure  # noqa: E402
+from repro_torch.service import (PlanCache, QuotaConfig, ServiceConfig,  # noqa: E402
+                                 Submission, TenantQuota, run_service, run_sustained)
 from repro_torch.sim import simulate  # noqa: E402
+from repro_torch.throughput import (plan_throughput, saturation_sweep,  # noqa: E402
+                                    simulate_pipelined)
 
 # the modules; the package's ``flash_attention`` and ``rwkv_wkv`` are the
 # layout wrappers
@@ -477,6 +517,37 @@ TRAIN_LM_EXAMPLE_TIMEOUT_S = 300
 # seed), and examples/elastic_serving_torch.py's time limit
 SIM_JITTER = (0.2, 16, 0)
 ELASTIC_EXAMPLE_TIMEOUT_S = 300
+# phase 31: instances of each pipelined replay, the offered rate over the
+# plan's rate, its arrival seed, and genome's saturation ladder
+THROUGHPUT_INSTANCES = 64
+THROUGHPUT_LOAD = 0.8
+THROUGHPUT_SEED = 0
+SATURATION_RUNGS = (0.5, 0.8, 0.95, 1.1)
+# what the reference (repro.throughput) gives on a CPU host for phase 29's
+# workflows: genome's saturation rows (offered, achieved, p50, p99,
+# saturated), and the memory violations of each family's 64-instance replay
+# (seismology's overlapping instances exceed a processor's 192 by 0.146; the
+# other six families have none)
+GENOME_SATURATION = [
+    (0.0002843954908548803, 0.0002726725653771168, 7885.133844139942, 9973.299114593854, False),
+    (0.0004550327853678085, 0.0004223617001483205, 8761.01116772887, 13120.41763820288, True),
+    (0.0005403514326242726, 0.0004866863863501968, 8892.058475633188, 14359.717434011933, True),
+    (0.0006256700798807367, 0.0005473071762974333, 10038.151556117467, 15222.887266815285, True)]
+PIPELINED_VIOLATIONS = {"seismology": 9}
+# the port's models replicated on four cards (phase 31 b)
+THROUGHPUT_FLEET = {"h100": 4}
+THROUGHPUT_REPLICAS = {"llama3_8b": 4, "mixtral_8x7b": 2}
+# phase 31 (c): the service's k' sweep, the spacing of the families'
+# arrivals, and its events' times: on a CPU host, genome (job 0) runs over
+# [0, 18848.16], so the failure of the two last processors at 3000 strikes
+# it, and the spare arrives at 20000 with jobs queued
+SERVICE_KPRIME = [2, 4, 6]
+SERVICE_SPACING = 100.0
+SERVICE_FAILURE_T, SERVICE_ARRIVAL_T = 3000.0, 20000.0
+HOST_EXAMPLES = {"heterogeneous_scheduling_torch.py": "bit-identical to analytic: True",
+                 "multi_tenant_service_torch.py": "=== stitched timeline ===",
+                 "sustained_throughput_torch.py": "bit-equal: True"}
+HOST_EXAMPLE_TIMEOUT_S = 300
 # olmoe_1b_7b: full depth for serving; 6 of 16 layers for training (2.72 B
 # parameters: 43.6 GB of params, grads and AdamW state)
 OLMOE_TRAIN_LAYERS = 6
@@ -3741,6 +3812,212 @@ def phase_sim(smi: str, sched: dict, llama_prefill: dict) -> dict:
             "example": phase_elastic_example()}
 
 
+def identity_anchor(best, platform) -> dict:
+    """One instance at 0 through the pipelined replay against ``simulate``
+    of the same mapping: makespan and horizon to the bit."""
+    ref = simulate(best)
+    solo = simulate_pipelined(best, platform, arrivals=[0.0])
+    row = dict(single_makespan=solo.single_makespan, horizon=solo.horizon,
+               simulate_makespan=ref.makespan, simulate_horizon=ref.horizon)
+    row["bit_equal"] = (solo.single_makespan == ref.makespan and solo.horizon == ref.horizon
+                        and solo.instances[0].finish == solo.horizon)
+    check(row["bit_equal"], f"identity anchor: {row}")
+    return row
+
+
+def throughput_row(family: str, wf, platform, smi: str) -> tuple[dict, object]:
+    """Phase 31 (a): one of phase 29's workflows planned for sustained
+    traffic and replayed with 64 instances in flight."""
+    tr, plan_s = wall(lambda: plan_throughput(wf, platform))
+    check(tr.feasible, f"{family}: plan_throughput infeasible: {tr.report.infeasibility}")
+    anchor = identity_anchor(tr.best, platform)
+    offered = THROUGHPUT_LOAD * tr.rate
+    replay = lambda: simulate_pipelined(tr.best, platform, rate=offered,  # noqa: E731
+                                        n_instances=THROUGHPUT_INSTANCES, seed=THROUGHPUT_SEED)
+    rep, replay_s = wall(replay)
+    again = replay()
+    rerun_equal = json.dumps(again.to_dict()) == json.dumps(rep.to_dict())
+    check(rerun_equal, f"{family}: a second pipelined replay differs")
+    violations = len(rep.memory.violations)
+    expected = PIPELINED_VIOLATIONS.get(family, 0)
+    check(violations == expected and rep.memory.feasible == (violations == 0),
+          f"{family}: {violations} memory violations over {THROUGHPUT_INSTANCES} instances, "
+          f"the reference counts {expected}")
+    lat = sorted(rep.latencies)
+    row = dict(tasks=wf.n, rate=tr.rate, replicas=tr.plan.n_replicas, k_prime=tr.k_prime,
+               period=tr.plan.period, latency=tr.latency, plan_wall_s=plan_s,
+               identity_anchor=anchor, instances=THROUGHPUT_INSTANCES,
+               replayed_tasks=THROUGHPUT_INSTANCES * wf.n, offered=offered,
+               achieved=rep.achieved_rate, achieved_over_offered=rep.achieved_rate / offered,
+               p50=rep.percentile_latency(50), p99=rep.percentile_latency(99),
+               max_latency=lat[-1], horizon=rep.horizon, memory_feasible=rep.memory.feasible,
+               memory_violations=violations, rerun_equal=rerun_equal, replay_wall_s=replay_s,
+               nvidia_smi=smi)
+    return row, tr
+
+
+def phase_throughput_families(smi: str) -> dict:
+    """Phase 31 (a): the seven families, then genome's saturation ladder."""
+    platform = default_cluster()
+    rows, genome = {}, None
+    for family in FAMILIES:
+        wf = generate_workflow(family, SCHED_N, seed=SCHED_SEED, platform=platform)
+        rows[family], tr = throughput_row(family, wf, platform, smi)
+        emit("throughput", family=family, platform=platform.name, **rows[family])
+        if family == "genome":
+            genome = tr
+    sweep, sweep_s = wall(lambda: saturation_sweep(
+        genome.best, platform, plan=genome.plan, rates=[f * genome.rate for f in SATURATION_RUNGS],
+        n_instances=THROUGHPUT_INSTANCES))
+    got = [tuple(r[k] for k in ("offered", "achieved", "p50", "p99", "saturated")) for r in sweep]
+    ratios = [r["achieved"] / r["offered"] for r in sweep]
+    row = dict(family="genome", rungs=list(SATURATION_RUNGS), rows=sweep,
+               achieved_over_offered=ratios, equal_to_reference=got == GENOME_SATURATION,
+               wall_s=sweep_s, nvidia_smi=smi)
+    emit("saturation", **row)
+    check(got == GENOME_SATURATION, f"genome's saturation rows differ from the reference's: {got}")
+    check(all(a > b for a, b in zip(ratios, ratios[1:])),
+          f"achieved over offered does not fall rung to rung: {ratios}")
+    rows["saturation"] = row
+    return rows
+
+
+def phase_throughput_models(smi: str, llama_prefill: dict) -> dict:
+    """Phase 31 (b): the port's models replicated on four H100s, and
+    llama3_8b's sustained stream planned cold, then seeded from the cache."""
+    b, s = PREFILL
+    shape = ShapeConfig("chip_smoke_prefill", seq_len=s, global_batch=b, kind="prefill")
+    fleet = h100_fleet_si(THROUGHPUT_FLEET)
+    rows, graphs = {}, {}
+    for arch, replicas in THROUGHPUT_REPLICAS.items():
+        wf, _ = build_model_graph(get_config(arch), shape,
+                                  microbatches=default_microbatches(shape))
+        graphs[arch] = wf
+        tr, plan_s = wall(lambda: plan_throughput(wf, fleet))
+        check(tr.feasible and tr.plan.n_replicas == replicas,
+              f"{arch} on {fleet.k} H100s: {tr.plan and tr.plan.n_replicas} replicas, "
+              f"not {replicas}")
+        rows[arch] = dict(arch=arch, batch=b, seq=s, cards=fleet.k, tasks=wf.n,
+                          replicas=tr.plan.n_replicas, k_prime=tr.k_prime,
+                          stages=len(tr.plan.groups[0].procs), period_s=tr.plan.period,
+                          rate_per_s=tr.rate, makespan_s=tr.best.makespan, plan_wall_s=plan_s,
+                          identity_anchor=identity_anchor(tr.best, fleet), nvidia_smi=smi)
+    llama = rows["llama3_8b"]
+    measured_s = llama_prefill["seconds"][-1]
+    llama["measured_prefill_s"] = measured_s
+    llama["rate_over_measured"] = llama["rate_per_s"] / (fleet.k / measured_s)
+    cache, runs = PlanCache(), {}
+    for path in ("cold", "seeded"):
+        rep, run_s = wall(lambda: run_sustained(
+            graphs["llama3_8b"], fleet, rate=THROUGHPUT_LOAD * llama["rate_per_s"],
+            n_instances=THROUGHPUT_INSTANCES, seed=THROUGHPUT_SEED, cache=cache))
+        check(rep.jobs[0].planning_path == path and len(rep.jobs) == THROUGHPUT_INSTANCES
+              and all(j.status == "completed" for j in rep.jobs)
+              and rep.pipelined.memory.feasible,
+              f"llama3_8b sustained run {path}: {rep.jobs[0].planning_path}, "
+              f"{len(rep.jobs)} jobs")
+        runs[path] = rep
+        rows[f"sustained_{path}"] = dict(
+            arch="llama3_8b", planning_path=path, instances=len(rep.jobs),
+            offered_per_s=THROUGHPUT_LOAD * llama["rate_per_s"],
+            achieved_per_s=rep.instances_per_s, latency_s=rep.instance_latency_percentiles,
+            plan_wall_s=rep.plan_wall_s, wall_s=run_s,
+            cache_stats={k: v for k, v in rep.cache_stats.items() if k.startswith("service")},
+            nvidia_smi=smi)
+    timings = lambda rep: [(j.arrival_t, j.dispatch_t, j.finish_t) for j in rep.jobs]  # noqa: E731
+    same = timings(runs["cold"]) == timings(runs["seeded"])
+    rows["sustained_seeded"]["instance_timings_equal_to_cold"] = same
+    check(same, "llama3_8b: the seeded sustained run's instance timings differ from the cold run's")
+    for name, row in rows.items():
+        emit("throughput_model", case=name, **row)
+    return rows
+
+
+def service_run(obs=None):
+    """Phase 31 (c)'s service run: the seven families twice each, two
+    malformed payloads, a failure while a job runs and a later arrival."""
+    platform = default_cluster()
+    config = ServiceConfig(
+        scheduler=SchedulerConfig(simulate=True, kprime=SERVICE_KPRIME),
+        quotas=QuotaConfig(tenants={"alice": TenantQuota(weight=2.0),
+                                    "bob": TenantQuota(max_running=1)}),
+        name="chip_smoke", obs=obs)
+    subs = []
+    for i, family in enumerate(FAMILIES):
+        wf = generate_workflow(family, SCHED_N, seed=SCHED_SEED, platform=platform)
+        subs.append(Submission(wf, tenant="alice", arrival_t=SERVICE_SPACING * i, name=family))
+        subs.append(Submission(wf, tenant="bob", arrival_t=SERVICE_SPACING * (i + 0.5),
+                               name=family))
+    subs += [Submission("{definitely not json", tenant="mallory", arrival_t=1.0, name="junk"),
+             Submission('{"workflow": {"specification": {"tasks": []}}}', tenant="mallory",
+                        arrival_t=2.0, name="hollow")]
+    events = [ProcFailure(time=SERVICE_FAILURE_T, procs={platform.k - 2, platform.k - 1}),
+              ProcArrival(time=SERVICE_ARRIVAL_T, procs=(Processor("spare-0", 2.5, 192.0),))]
+    return subs, run_service(subs, platform, events, config)
+
+
+def phase_service(smi: str) -> dict:
+    """Phase 31 (c): the service at the paper's size, run three times."""
+    (subs, rep), run_s = wall(service_run)
+    (_, again), rerun_s = wall(service_run)
+    (_, traced), traced_s = wall(lambda: service_run(ObsConfig(enabled=True)))
+    jobs = rep.jobs
+    terminal = ("completed", "infeasible", "rejected")
+    statuses = {s: sum(j.status == s for j in jobs) for s in terminal}
+    accounted = len(jobs) == len(subs) and sum(statuses.values()) == len(subs)
+    replans = [e for e in rep.trace.log if e["kind"] == "replan"]
+    hits = rep.cache_stats.get("service_cache_hits", 0)
+    trace = rep.trace.to_json()
+    row = dict(submissions=len(subs), statuses=statuses, accounted_once=accounted,
+               rejections=[j.rejection["code"] for j in jobs if j.status == "rejected"],
+               planning_paths={p: sum(j.planning_path == p for j in jobs)
+                               for p in ("cold", "seeded")},
+               replans=[(e["t"], e["job"], e["path"]) for e in replans],
+               cache_stats={k: v for k, v in rep.cache_stats.items() if k.startswith("service")},
+               horizon=rep.trace.horizon, utilization=rep.utilization,
+               rerun_trace_equal=again.trace.to_json() == trace,
+               traced_trace_equal=traced.trace.to_json() == trace, spans=len(traced.spans),
+               plan_wall_s={path: {"calls": len(v), "sum": sum(v), "mean": sum(v) / len(v),
+                                   "max": max(v)} for path, v in rep.plan_wall_s.items()},
+               wall_s={"run": run_s, "rerun": rerun_s, "traced": traced_s}, nvidia_smi=smi)
+    emit("service", **row)
+    check(accounted and statuses["rejected"] == 2 and statuses["infeasible"] == 0,
+          f"service: the {len(subs)} submissions end as {statuses}")
+    check(hits >= 1, f"service: no plan-cache hit ({row['cache_stats']})")
+    check(any(e["t"] == SERVICE_FAILURE_T and e["path"] == "warm" for e in replans),
+          f"service: no warm replan at the failure ({row['replans']})")
+    check(row["rerun_trace_equal"] and row["traced_trace_equal"] and row["spans"] > 0,
+          "service: the trace differs on a rerun or with tracing on")
+    return row
+
+
+def phase_host_examples() -> dict:
+    """Phase 31 (d): the three host-only examples, each a process of its own
+    with its own time limit."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    rows = {}
+    for script, expect in HOST_EXAMPLES.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / script)], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=HOST_EXAMPLE_TIMEOUT_S)
+        rows[script] = row = dict(rc=proc.returncode, wall_s=time.perf_counter() - t0,
+                                  lines=len(proc.stdout.splitlines()),
+                                  stdout_tail=proc.stdout[-600:], stderr_tail=proc.stderr[-800:])
+        emit("host_example", script=f"examples/{script}", **row)
+        check(proc.returncode == 0 and expect in proc.stdout, f"examples/{script}: {row}")
+    return rows
+
+
+def phase_throughput(smi: str, llama_prefill: dict) -> dict:
+    """Phase 31: the seven families (a), the port's models on four cards
+    (b), the service at the paper's size (c), the host-only examples (d)."""
+    return {"families": phase_throughput_families(smi),
+            "models": phase_throughput_models(smi, llama_prefill),
+            "service": phase_service(smi),
+            "examples": phase_host_examples()}
+
+
 def free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3961,6 +4238,7 @@ def main() -> int:
     phase_train_lm_example()
     sched = phase_scheduler(smi, {"llama3_8b": llama_prefill, "olmoe_1b_7b": olmoe_prefill})
     phase_sim(smi, sched, llama_prefill)
+    phase_throughput(smi, llama_prefill)
 
     olmoe, jamba_id, vision_id, seamless = ("olmoe_1b_7b", "jamba_15_large",
                                             "llama32_vision_90b", "seamless_m4t_v2")

@@ -4,8 +4,9 @@ H100 (Hopper, ``sm_90a``).
 The JAX package ``repro`` stays the reference; this package imports
 ``torch`` and never ``jax`` nor anything of ``repro``.  It mirrors the
 reference's layout (``configs``, ``models``, ``kernels``, ``optim``,
-``checkpoint``, ``data``, ``runtime``, ``launch``) so each function has
-a counterpart there, and keeps the JAX parameter tree's key paths so
+``checkpoint``, ``data``, ``runtime``, ``launch``, and the scheduler
+stack in numpy: ``core``, ``obs``, ``sim``, ``objectives``, ``scenario``,
+``throughput``, ``service``) so each function has a counterpart there, and keeps the JAX parameter tree's key paths so
 weights map 1:1 (:mod:`repro_torch.convert`).
 
 Every constructor and entry point takes ``device`` and defaults to

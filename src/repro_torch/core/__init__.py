@@ -32,10 +32,9 @@ the ``simulate`` stage and ``validate_mapping(..., memory_trace=True)``),
 the reliability and energy objectives (:mod:`repro_torch.objectives`, the
 ``reliability`` and ``energy`` stages) and scenario timelines with
 replanning (:mod:`repro_torch.scenario`, and
-:func:`repro_torch.runtime.rescale_plan` on top).  Throughput and the
-service loop are later parts of the port (``ROADMAP.md`` queue 1): until
-they land, the ``throughput`` stage raises ``NotImplementedError`` where
-the reference would import its package.
+:func:`repro_torch.runtime.rescale_plan` on top), steady-state throughput
+(:mod:`repro_torch.throughput`, the ``throughput`` stage) and the
+multi-tenant service loop (:mod:`repro_torch.service`).
 
 Scheduling API
 --------------

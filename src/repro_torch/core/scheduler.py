@@ -698,14 +698,6 @@ def _materialize_result(ctx: StageContext, kp: int | None) -> None:
     )
 
 
-def _not_ported(stage: str, package: str, item: int) -> str:
-    """The message of a stage whose package the port has not copied yet:
-    the stage raises where the reference imports the package, after the
-    early returns the reference takes before that import."""
-    return (f"the {stage!r} stage needs repro_torch.{package}, which is not "
-            f"ported yet (ROADMAP.md queue 1 item {item})")
-
-
 class SimulateStage:
     """Post-pipeline replay: attach a :class:`repro_torch.sim.SimReport` to
     the mapping (``extras["sim"]``).  Off by default
@@ -728,10 +720,24 @@ class SimulateStage:
 
 
 class ThroughputStage:
-    """Post-pipeline steady-state throughput analysis (replicate the mapped
-    block groups onto idle processors and price the sustainable instance
-    rate).  Its package is not ported yet: on a feasible attempt the stage
-    raises ``NotImplementedError`` where the reference imports it."""
+    """Post-pipeline steady-state throughput analysis
+    (:mod:`repro_torch.throughput`): replicate the mapped block groups onto
+    idle processors and price the sustainable instance rate
+    (``extras["throughput"]``, a
+    :class:`~repro_torch.throughput.ThroughputPlan`).
+
+    Options come from ``SchedulerConfig.throughput_options``
+    (``max_replicas``, ``include_comm``, ``latency_bound``).  A
+    ``latency_bound`` the *unreplicated* plan already violates is a
+    structured :class:`StageFailure` — the k' attempt is infeasible for
+    sustained traffic even though a one-shot mapping exists, which is
+    exactly how the sweep optimizes replication count and k' jointly.
+    Each attempt's rate/replica-count/period land as single-observation
+    histograms in the sweep point's ``metrics`` block (histogram deltas
+    are always present, unlike unchanged gauges), so rate-maximizing
+    selection (:func:`repro_torch.throughput.plan_throughput`) can read them
+    per k'.
+    """
 
     name = "throughput"
     toggle = None
@@ -740,7 +746,24 @@ class ThroughputStage:
         _materialize_result(ctx, ctx.k_prime)
         if ctx.result is None:
             return
-        raise NotImplementedError(_not_ported("throughput", "throughput", 1))
+        from repro_torch import throughput as _tp  # deferred, like simulate
+
+        opts = dict(ctx.throughput_options or {})
+        plan = _tp.replicate_plan(ctx.result, ctx.platform, **opts)
+        bound = opts.get("latency_bound")
+        if bound is not None and plan.groups[0].latency > bound:
+            ctx.failure = StageFailure(
+                self.name,
+                f"per-instance latency {plan.groups[0].latency:.6g} "
+                f"exceeds bound {bound:.6g} at k'={ctx.k_prime}",
+                None,
+            )
+            ctx.result = None
+            return
+        ctx.result.extras["throughput"] = plan
+        METRICS.observe("throughput_rate", plan.rate)
+        METRICS.observe("throughput_replicas", float(plan.n_replicas))
+        METRICS.observe("throughput_period", plan.period)
 
 
 class ReliabilityStage:

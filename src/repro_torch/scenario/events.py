@@ -48,7 +48,7 @@ class EventTimelineError(ValueError):
     ``"negative-time"``, ``"unsorted"``, ``"unsorted-tie"``).
     :class:`Scenario
     <repro_torch.scenario.runner.Scenario>` construction (and the
-    service event loop, a later part of the port) enforce this invariant up
+    :mod:`repro_torch.service` event loop) enforce this invariant up
     front — an unsorted or non-finite timeline must fail loudly before
     any replanning starts, not misbehave mid-run.
     """

@@ -20,10 +20,7 @@ replanning policy and the service loop through them and checks the
 * an empty timeline reproduces ``schedule(simulate=True)`` bit-exactly
   (the identity anchor);
 * the service loop accounts for every submission
-  (completed + infeasible + rejected == submitted).  The service loop is
-  a later part of the port: until it lands, the service check raises
-  ``NotImplementedError`` where the reference imports it, so a corpus
-  runs with ``service=False``.
+  (completed + infeasible + rejected == submitted).
 
 Everything is a pure function of ``(seed, case index)`` — a corpus is
 reproducible from its seed (``REPRO_FUZZ_SEED`` in the test tier,
@@ -293,11 +290,24 @@ def _check_events_roundtrip(rep: FuzzReport, case: FuzzCase) -> None:
 
 
 def _check_service(rep: FuzzReport, case: FuzzCase) -> None:
-    """The service loop's conservation check.  It raises where the
-    reference imports the service loop, outside the check's ``try``."""
-    raise NotImplementedError(
-        "the fuzz corpus's service check needs repro_torch.service, which "
-        "is not ported yet (ROADMAP.md queue 1 item 2); pass service=False")
+    from repro_torch.service import Submission, run_service
+
+    rep.checks += 1
+    try:
+        sr = run_service([Submission(case.workflow, name="fuzz")],
+                         case.platform, case.events)
+    except Exception as exc:  # noqa: BLE001
+        rep.record(FuzzViolation(
+            case.index, case.seed, "service", "uncaught-exception",
+            f"{type(exc).__name__}: {exc}"))
+        return
+    jobs = sr.trace.jobs
+    terminal = {"completed", "infeasible", "rejected"}
+    if len(jobs) != 1 or any(j.status not in terminal for j in jobs):
+        rep.record(FuzzViolation(
+            case.index, case.seed, "service", "service-conservation",
+            f"statuses {[j.status for j in jobs]} don't account for "
+            f"the submission"))
 
 
 def fuzz_scenarios(seed: int = 0, n: int = 25, *,

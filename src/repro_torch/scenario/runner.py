@@ -60,8 +60,8 @@ class Scenario:
     The event timeline must be **sorted by time** with finite,
     non-negative times — construction validates this and raises a
     structured :class:`~repro_torch.scenario.events.EventTimelineError`
-    otherwise (the service event loop, a later part of the port, relies
-    on the same invariant).  Execution pauses the simulation once per distinct
+    otherwise (the :mod:`repro_torch.service` event loop relies on the
+    same invariant).  Execution pauses the simulation once per distinct
     event time (ties apply sequentially in listed order).  Processor
     indices in an event refer to the platform *as of that event's
     application*: after a ``ProcFailure``, later events (including
@@ -178,7 +178,7 @@ def freeze_prefix(
 
     This is the pause-replan-stitch core shared by
     :func:`run_scenario` (one workflow, platform timeline) and the
-    service event loop, a later part of the port (many jobs, one shared
+    :mod:`repro_torch.service` event loop (many jobs, one shared
     platform — each affected job is frozen against its own sub-platform).
     ``proc_map`` carries assignments across the event
     (old index → new index, ``None`` for a lost processor); in-flight

@@ -23,7 +23,7 @@ Semantics (the paper's execution model, §3.3):
   source block finishes; the comm model decides when it lands.
 
 ``run_engine(..., release={vid: t})`` floors each listed block's start
-at ``t``: the throughput analysis (a later part of the port) lowers N instances of one workflow
+at ``t``: :mod:`repro_torch.throughput` lowers N instances of one workflow
 into disjoint vid ranges whose sources are released at the instance
 arrival times, so instance i+1's sources overlap instance i's sinks on
 the shared processors.  An empty/absent ``release`` map reproduces the

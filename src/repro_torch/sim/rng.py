@@ -2,7 +2,7 @@
 
 All stochastic draws in the codebase — duration jitter
 (:mod:`repro_torch.sim.perturb`), arrival processes
-(the throughput analysis's arrivals), future failure-trace generators —
+(:mod:`repro_torch.throughput.arrivals`), future failure-trace generators —
 go through :func:`stream_rng` so the determinism contract is uniform:
 the same ``(tag, seed, stream)`` triple always reproduces the same
 draws regardless of call order, process, or platform.  ``tag``

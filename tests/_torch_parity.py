@@ -6,6 +6,7 @@ events cross by value (processors, links, failure rates and power;
 JSON both write, with the wall-clock fields set aside.
 """
 import json
+import textwrap
 
 import pytest
 
@@ -18,6 +19,34 @@ from repro_torch.obs.metrics import METRICS
 
 _CORE = {"jax": J, "port": T}
 _SCENARIO = {"jax": J_scenario, "port": T_scenario}
+
+#: A ``sitecustomize`` that blocks the top-level packages named in
+#: ``REPRO_TEST_BLOCKED`` (default ``jax,jaxlib``) in the process that loads
+#: it and in every process that one starts with the same path: put its
+#: directory first on ``PYTHONPATH``.
+JAX_BLOCKER = textwrap.dedent("""
+    import importlib
+    import os
+    import sys
+
+    _BLOCKED = tuple(os.environ.get("REPRO_TEST_BLOCKED", "jax,jaxlib").split(","))
+
+    class _BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in _BLOCKED:
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, _BlockJax())
+    # hand over to any other sitecustomize further down the path
+    _here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != _here]
+    del sys.modules[__name__]
+    try:
+        importlib.import_module("sitecustomize")
+    except ImportError:
+        pass
+""")
 
 
 @pytest.fixture(autouse=True)
@@ -79,4 +108,24 @@ def untimed_timeline_json(tl) -> str:
     d["replan_times_s"] = [0.0] * len(d["replan_times_s"])
     for seg in d["segments"]:
         _untime(seg["report"])
+    return json.dumps(d)
+
+
+#: histograms whose observations are wall-clock seconds
+_WALL_HISTOGRAMS = ("service_plan_latency_s", "sched_sweep_point_s")
+
+
+def untimed_service_json(rep) -> str:
+    """``ServiceReport.to_json()`` with the wall-clock fields set aside:
+    ``total_time_s``, each planning call's seconds in ``plan_wall_s`` (the
+    paths and the number of calls stay) and the wall-clock histograms, of
+    which only the count of observations stays.  The trace inside is kept
+    whole: its mappings already carry ``runtime_s`` = 0."""
+    d = json.loads(rep.to_json())
+    d["total_time_s"] = 0.0
+    d["plan_wall_s"] = {k: [0.0] * len(v) for k, v in d["plan_wall_s"].items()}
+    hists = d["metrics"].get("histograms", {})
+    for name in _WALL_HISTOGRAMS:
+        if name in hists:
+            hists[name] = {"count": hists[name]["count"]}
     return json.dumps(d)

@@ -256,7 +256,7 @@ def test_cells_count_the_kernels_per_rank(llama_cells):
     """Kernel launches per rank: 32 attention layers, twice forward under
     remat "full" with one backward each, none in decode; and the FFN
     computed over the rank's rows with every weight gathered keeps the
-    useful fraction far below JAX's 0.731 (ROADMAP queue 1 item 5)."""
+    useful fraction far below JAX's 0.731 (ROADMAP queue 1 item 3)."""
     train_cell = llama_cells["train_4k"]
     assert train_cell["kernel_launches"] == {"flash_attention_bhsd[wgmma]": 64,
                                              "flash_attention_bwd[backward_wgmma]": 32}

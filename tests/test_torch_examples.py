@@ -9,42 +9,30 @@ that reached JAX would fail with an ImportError.  For the examples that
 schedule (``pipeline_training_torch.py``, ``quickstart_torch.py``,
 ``elastic_serving_torch.py``) it blocks the JAX package ``repro`` as well:
 they plan through the port's own scheduler (``repro_torch.core``).
+
+The three host-only examples (``heterogeneous_scheduling_torch.py``,
+``multi_tenant_service_torch.py``, ``sustained_throughput_torch.py``) take
+no device: each runs with ``jax``, ``jaxlib`` and ``repro`` blocked, and
+its stdout is the JAX example's, run here on the same machine, line for
+line.  Two things are set aside: the milliseconds of the lines that print
+wall-clock planning time (``_WALL_MS``; the path and the number of calls
+stay), and the package name a line may print (``repro_torch.`` for
+``repro.``).
 """
 import os
 import re
 import subprocess
 import sys
-import textwrap
 from pathlib import Path
 
 import pytest
 
+from _torch_parity import JAX_BLOCKER as _BLOCKER
+
 _REPO = Path(__file__).resolve().parents[1]
 _TIMEOUT_S = 300
-
-_BLOCKER = textwrap.dedent("""
-    import importlib
-    import os
-    import sys
-
-    _BLOCKED = tuple(os.environ.get("REPRO_TEST_BLOCKED", "jax,jaxlib").split(","))
-
-    class _BlockJax:
-        def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in _BLOCKED:
-                raise ImportError("blocked: " + name)
-            return None
-
-    sys.meta_path.insert(0, _BlockJax())
-    # hand over to any other sitecustomize further down the path
-    _here = os.path.dirname(os.path.abspath(__file__))
-    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != _here]
-    del sys.modules[__name__]
-    try:
-        importlib.import_module("sitecustomize")
-    except ImportError:
-        pass
-""")
+_HOST_ONLY = ("heterogeneous_scheduling_torch.py", "multi_tenant_service_torch.py",
+              "sustained_throughput_torch.py")
 
 
 def _run(tmp_path, script, *args, blocked=("jax", "jaxlib")):
@@ -58,6 +46,38 @@ def _run(tmp_path, script, *args, blocked=("jax", "jaxlib")):
                          cwd=str(tmp_path))
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     return res.stdout
+
+
+#: the wall-clock part of a line such as "  cold    planning:     14.7 ms avg
+#: over 26" (multi_tenant_service)
+_WALL_MS = re.compile(r"planning: +[0-9.]+ ms avg")
+
+
+def _reference_stdout(tmp_path, script):
+    """The JAX example's stdout, run in a subprocess of this machine."""
+    env = {**os.environ, "PYTHONPATH": str(_REPO / "src"), "OMP_NUM_THREADS": "2",
+           "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, str(_REPO / "examples" / script)],
+                         capture_output=True, text=True, timeout=_TIMEOUT_S, env=env,
+                         cwd=str(tmp_path))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    return res.stdout
+
+
+def _comparable(out: str) -> list[str]:
+    return [_WALL_MS.sub("planning: <ms> ms avg", line.replace("repro_torch.", "repro."))
+            for line in out.splitlines()]
+
+
+@pytest.mark.parametrize("script", ["heterogeneous_scheduling", "multi_tenant_service",
+                                    "sustained_throughput"])
+def test_host_example_prints_what_the_jax_example_prints(tmp_path, script):
+    out = _run(tmp_path, f"{script}_torch.py", blocked=("jax", "jaxlib", "repro"))
+    ref = _reference_stdout(tmp_path, f"{script}.py")
+    assert len(out.splitlines()) > 10
+    assert _comparable(out) == _comparable(ref)
+    walls = [line for line in out.splitlines() if _WALL_MS.search(line)]
+    assert len(walls) == (3 if script == "multi_tenant_service" else 0)
 
 
 def test_blocker_blocks_jax(tmp_path):
@@ -137,9 +157,17 @@ def test_elastic_serving_torch(tmp_path):
 
 
 @pytest.mark.parametrize("script", ["train_lm_torch.py", "pipeline_training_torch.py",
-                                    "quickstart_torch.py", "elastic_serving_torch.py"])
+                                    "quickstart_torch.py", "elastic_serving_torch.py",
+                                    "heterogeneous_scheduling_torch.py",
+                                    "multi_tenant_service_torch.py",
+                                    "sustained_throughput_torch.py"])
 def test_example_imports_nothing_of_jax_and_defaults_to_the_card(script):
+    """No example imports JAX or the JAX package; those that use a device
+    default to the card, and the host-only ones take none."""
     src = (_REPO / "examples" / script).read_text()
     assert not re.search(r"^\s*(import jax|from jax|import repro\.|from repro |from repro\.)",
                          src, re.MULTILINE)
-    assert 'default="cuda"' in src
+    if script in _HOST_ONLY:
+        assert "--device" not in src and "import torch" not in src
+    else:
+        assert 'default="cuda"' in src

@@ -1,16 +1,15 @@
 """The port's scenario fuzzing, ``repro_torch.scenario.fuzz``: the smoke
 corpus, tie ordering, reproducibility.
 
-Every case of ``tests/test_fuzz_scenarios.py`` on the port alone.  The
-corpus runs every replanning policy with ``service=False``: the service
-loop is not ported yet, so the service check raises
-``NotImplementedError`` (``ROADMAP.md`` queue 1 item 2) where the
-reference imports it, which a case here shows.  The large corpus is behind
-the ``slow`` marker and reproducible via ``REPRO_FUZZ_SEED``.
+Every case of ``tests/test_fuzz_scenarios.py`` on the port alone, at the
+reference's defaults: the corpus runs every replanning policy and the
+service loop's conservation check (``service=True``).  The large corpus is
+behind the ``slow`` marker and reproducible via ``REPRO_FUZZ_SEED``.
 
 Then parity with ``repro.scenario.fuzz``: the 25-case corpus, plain and
 with checkpoint pricing, gives JAX's ``FuzzReport`` (checks, violations,
-per-policy counts and summary), and each generated case is JAX's.
+per-policy counts and summary), so does the CLI, and each generated case
+is JAX's.
 """
 import dataclasses
 import os
@@ -18,6 +17,7 @@ import os
 import pytest
 
 import repro.scenario as J_scenario
+import repro.scenario.fuzz as J_fuzz
 from repro_torch.core import SchedulerConfig
 from repro_torch.scenario import (
     EventTimelineError,
@@ -33,6 +33,7 @@ from repro_torch.scenario import (
     run_scenario,
     validate_event_timeline,
 )
+from repro_torch.obs.metrics import METRICS
 from repro_torch.scenario.fuzz import FUZZ_POLICIES, main
 
 from _torch_parity import fresh_metrics  # noqa: F401 (fixture)
@@ -46,8 +47,8 @@ SMOKE_SEED = 2026
 class TestSmokeCorpus:
     def test_25_seed_corpus_clean(self, smoke_corpus):
         """Acceptance gate: 25 cases × all policies, zero uncaught
-        exceptions, every invariant holds (the service check waits for
-        the service loop: ``test_service_check_raises_until_ported``)."""
+        exceptions, every invariant holds, the service check's
+        included."""
         rep = smoke_corpus
         assert rep.passed, rep.summary()
         assert rep.n_cases == 25
@@ -57,13 +58,13 @@ class TestSmokeCorpus:
 
     def test_pricing_corpus_clean(self):
         """The checkpoint-pricing path upholds the same invariants."""
-        rep = fuzz_scenarios(seed=SMOKE_SEED + 1, n=10, service=False,
+        rep = fuzz_scenarios(seed=SMOKE_SEED + 1, n=10,
                              price_migration=True)
         assert rep.passed, rep.summary()
 
     def test_corpus_is_deterministic(self):
-        a = fuzz_scenarios(seed=SMOKE_SEED, n=5, service=False)
-        b = fuzz_scenarios(seed=SMOKE_SEED, n=5, service=False)
+        a = fuzz_scenarios(seed=SMOKE_SEED, n=5)
+        b = fuzz_scenarios(seed=SMOKE_SEED, n=5)
         assert a.checks == b.checks
         assert a.violations == b.violations
 
@@ -93,12 +94,12 @@ class TestSmokeCorpus:
 class TestLargeCorpus:
     def test_large_corpus_clean(self):
         seed = int(os.environ.get("REPRO_FUZZ_SEED", "0"))
-        rep = fuzz_scenarios(seed=seed, n=150, service=False)
+        rep = fuzz_scenarios(seed=seed, n=150)
         assert rep.passed, rep.summary()
 
     def test_large_pricing_corpus_clean(self):
         seed = int(os.environ.get("REPRO_FUZZ_SEED", "0"))
-        rep = fuzz_scenarios(seed=seed + 7, n=75, service=False, price_migration=True)
+        rep = fuzz_scenarios(seed=seed + 7, n=75, price_migration=True)
         assert rep.passed, rep.summary()
 
 
@@ -171,18 +172,32 @@ class TestTieOrdering:
 
 @pytest.fixture(scope="module")
 def smoke_corpus():
-    """The port's 25-case smoke corpus, run once for the module."""
-    return fuzz_scenarios(seed=SMOKE_SEED, n=25, service=False)
+    """The port's 25-case smoke corpus, run once for the module.  It runs
+    before each test's metrics bracket opens, so it restores the port's
+    registry itself: a counter it registered first would reorder the
+    reports of later tests in the same process."""
+    snap = METRICS.snapshot()
+    try:
+        return fuzz_scenarios(seed=SMOKE_SEED, n=25)
+    finally:
+        METRICS.restore(snap)
 
 
-def test_service_check_raises_until_ported():
-    """``service=True`` (the reference's default, and the CLI's) reaches
-    the service check, which raises where the reference imports the
-    service loop; the CLI does too."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        fuzz_scenarios(seed=SMOKE_SEED, n=1)
-    with pytest.raises(NotImplementedError, match="repro_torch.service"):
-        main(["-n", "1"])
+def test_service_check_raises_until_ported(capsys):
+    """``service=True`` (the reference's default, and the CLI's) runs the
+    service loop's conservation check once per case without raising: the
+    corpus's record is the reference's, one check a case more than without
+    it, and the CLI's ``-n`` run prints the reference's summary and exits 0."""
+    ours = fuzz_scenarios(seed=SMOKE_SEED, n=8, service=True)
+    ref = J_scenario.fuzz_scenarios(seed=SMOKE_SEED, n=8, service=True)
+    assert _record(ours) == _record(ref)
+    assert ours.passed and ours.per_policy.get("service", 0) == 0
+    assert ours.checks == fuzz_scenarios(seed=SMOKE_SEED, n=8, service=False).checks + 8
+    assert main(["-n", "3"]) == 0
+    out = capsys.readouterr().out
+    assert J_fuzz.main(["-n", "3"]) == 0
+    assert capsys.readouterr().out == out
+    assert "service: 0" in out and "0 violation(s)" in out
 
 
 def _record(rep):
@@ -195,8 +210,8 @@ def _record(rep):
 @pytest.mark.parametrize("price_migration", [False, True])
 def test_corpus_equals_the_reference(price_migration, smoke_corpus):
     ours = (smoke_corpus if not price_migration
-            else fuzz_scenarios(seed=SMOKE_SEED, n=25, service=False, price_migration=True))
-    ref = J_scenario.fuzz_scenarios(seed=SMOKE_SEED, n=25, service=False,
+            else fuzz_scenarios(seed=SMOKE_SEED, n=25, price_migration=True))
+    ref = J_scenario.fuzz_scenarios(seed=SMOKE_SEED, n=25,
                                     price_migration=price_migration)
     assert _record(ours) == _record(ref)
     assert ours.checks > 25 * len(FUZZ_POLICIES)

@@ -54,7 +54,14 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.sim.engine", "repro_torch.sim.memory", "repro_torch.objectives",
                  "repro_torch.scenario", "repro_torch.scenario.policies",
                  "repro_torch.scenario.report", "repro_torch.scenario.runner",
-                 "repro_torch.scenario.fuzz", "repro_torch.runtime.elastic"):
+                 "repro_torch.scenario.fuzz", "repro_torch.runtime.elastic",
+                 "repro_torch.throughput", "repro_torch.throughput.arrivals",
+                 "repro_torch.throughput.replicate", "repro_torch.throughput.pipeline",
+                 "repro_torch.throughput.plan", "repro_torch.service",
+                 "repro_torch.service.fingerprint", "repro_torch.service.submission",
+                 "repro_torch.service.admission", "repro_torch.service.plancache",
+                 "repro_torch.service.report", "repro_torch.service.loop",
+                 "repro_torch.service.sustained"):
         assert name in modules
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -3,12 +3,14 @@
 Cases of ``tests/test_obs.py`` on the port: the metrics registry
 (histograms, snapshot/delta/merge, picklable deltas, the counters facet),
 the tracer (nesting, the disabled fast path), the exporters (Chrome trace
-schema, JSONL), inertness (bit-equal plans with tracing on and off) and
-metric deltas shipped across the ``workers=2`` pool.  The port's registry
+schema, JSONL), inertness (bit-equal plans with tracing on and off, the
+service loop's trace included), the service report's histogram
+percentiles and metric deltas shipped across the ``workers=2`` pool.  The port's registry
 is its own object, so the two packages' counters never mix.  Then one
 traced ``schedule()`` in each package on the same inputs: the same span
 names with the same nesting and attributes (timing aside), and the same
-``cache_stats``.
+``cache_stats``; and one traced ``run_service()`` in each package: the
+same ``service.*`` spans and the same trace.
 """
 import json
 import pickle
@@ -17,6 +19,8 @@ import pytest
 
 import repro.core as J
 import repro.obs as J_obs
+import repro.service as J_service
+from repro.obs.metrics import METRICS as J_METRICS
 from repro_torch.core import (
     FAMILIES,
     ScheduleReport,
@@ -42,6 +46,7 @@ from repro_torch.obs import (
     tracing_active,
     write_chrome_trace,
 )
+from repro_torch.service import ServiceConfig, ServiceReport, Submission, run_service
 
 
 @pytest.fixture(autouse=True)
@@ -244,3 +249,88 @@ def test_traced_schedule_spans_equal_jax(probe_spans):
     assert rep.cache_stats == jrep.cache_stats
     assert [p.cache_stats for p in rep.sweep] == [p.cache_stats for p in jrep.sweep]
     assert rep.makespan == jrep.makespan
+
+
+# ------------------------------------------------------- the service loop
+@pytest.fixture
+def _fresh_registries():
+    """Both registries empty at the start (each package's report lists
+    metrics in the order its process first registered them)."""
+    METRICS.reset()
+    J_METRICS.reset()
+
+
+def _service_subs(core, service):
+    plat = core.default_cluster()
+    subs = [
+        service.Submission(core.generate_workflow("blast", 120, seed=5, platform=plat),
+                           tenant="a", arrival_t=0.0, name="j0"),
+        service.Submission(core.generate_workflow("blast", 120, seed=5, platform=plat),
+                           tenant="b", arrival_t=1.0, name="j1"),
+        service.Submission(core.generate_workflow("genome", 150, seed=6, platform=plat),
+                           tenant="a", arrival_t=2.0, name="j2"),
+    ]
+    return subs, plat
+
+
+def test_service_trace_bit_identical(tmp_path, _fresh_registries):
+    """Tracing the service loop is inert: the virtual-time trace is the
+    same bytes with obs on and off, and the reference's; the Chrome trace
+    holds both clock domains and the sink streams the log and the spans.
+    The spans are the reference's, name, depth and attributes."""
+    import repro_torch.core as T
+    import repro_torch.service as T_service
+    subs, plat = _service_subs(T, T_service)
+    off = run_service(subs, plat)
+    on = run_service(subs, plat, obs=ObsConfig(
+        enabled=True, trace_path=tmp_path / "svc.json", sink=tmp_path / "svc.jsonl"))
+    assert on.trace.to_json() == off.trace.to_json()
+    assert on.spans and not off.spans
+    names = {s.name for s in on.spans}
+    assert {"service.admit", "service.dispatch", "service.plan",
+            "service.complete"} <= names
+    events = _check_chrome_schema(tmp_path / "svc.json")
+    assert {"wall", "virtual"} <= {e["pid"] for e in events}
+    records = [json.loads(ln) for ln in (tmp_path / "svc.jsonl").read_text().splitlines()]
+    assert {r["event"] for r in records} == {"service", "span"}
+    assert sum(r["event"] == "service" for r in records) == len(on.trace.log)
+    jsubs, jplat = _service_subs(J, J_service)
+    ref = J_service.run_service(jsubs, jplat, obs=J_obs.ObsConfig(enabled=True))
+    assert on.trace.to_json() == ref.trace.to_json()
+    assert _span_tree(on.spans) == _span_tree(ref.spans)
+
+
+def test_service_percentiles_from_histograms(_fresh_registries):
+    plat = default_cluster()
+    subs = [Submission(generate_workflow("blast", 120, seed=5, platform=plat),
+                       arrival_t=float(i), name=f"j{i}") for i in range(3)]
+    rep = run_service(subs, plat)
+    p = rep.plan_latency_percentiles
+    assert p is not None and p["p50"] <= p["p95"] <= p["p99"]
+    assert rep.queue_wait_percentiles is not None
+    # identical DAGs: second+ submissions hit the plan cache, so the
+    # premium histogram has samples near 1.0
+    prem = rep.makespan_premium_percentiles
+    assert prem is not None and prem["p50"] >= 0.5
+    jplat = J.default_cluster()
+    ref = J_service.run_service(
+        [J_service.Submission(J.generate_workflow("blast", 120, seed=5, platform=jplat),
+                              arrival_t=float(i), name=f"j{i}") for i in range(3)], jplat)
+    # the virtual-time histograms are the reference's; the wall clock's is not
+    assert rep.queue_wait_percentiles == ref.queue_wait_percentiles
+    assert rep.makespan_premium_percentiles == ref.makespan_premium_percentiles
+    assert (rep.metrics["histograms"]["service_plan_latency_s"]["count"]
+            == ref.metrics["histograms"]["service_plan_latency_s"]["count"])
+
+
+def test_service_payload_without_metrics_loads():
+    """A ``run_service`` payload written without a metrics block loads with
+    empty metrics and no percentiles."""
+    plat = default_cluster()
+    svc = run_service([Submission(generate_workflow("blast", 120, seed=4, platform=plat),
+                                  name="j0")], plat)
+    sd = svc.to_dict()
+    del sd["metrics"]
+    old = ServiceReport.from_dict(sd)
+    assert old.metrics == {} and old.plan_latency_percentiles is None
+    assert old.trace.to_json() == svc.trace.to_json()

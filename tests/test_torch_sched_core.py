@@ -423,13 +423,35 @@ def _tiny_platform():
     return Platform([Processor("p0", 1.0, 1.0)], 1.0)
 
 
-@pytest.mark.parametrize("overrides,match", [
-    ({"algorithm": "throughput"}, "queue 1 item 1"),
+@pytest.mark.parametrize("overrides,latency_bound", [
+    ({"algorithm": "throughput"}, None),
+    ({"algorithm": "throughput"}, 1e-9),
 ])
-def test_stage_of_an_unported_package_raises(overrides, match):
+def test_stage_of_an_unported_package_raises(overrides, latency_bound):
+    """The ``throughput`` stage runs, where it raised while its package was
+    missing: the ``throughput`` pipeline's ``ScheduleReport`` is JAX's byte
+    for byte (timing aside), with the winner's ``ThroughputPlan`` attached,
+    and a latency bound no attempt meets is the reference's structured
+    infeasibility."""
+    import repro.core as J
+    from repro.obs.metrics import METRICS as J_METRICS
+    from _torch_parity import untimed_schedule_json
+
+    METRICS.reset()
+    J_METRICS.reset()
+    opts = {} if latency_bound is None else {"latency_bound": latency_bound}
     wf, plat = _small()
-    with pytest.raises(NotImplementedError, match=match):
-        schedule(wf, plat, kprime=[4], **overrides)
+    jplat = J.small_cluster()
+    jwf = J.generate_workflow("blast", 120, seed=2, platform=jplat)
+    rep = schedule(wf, plat, kprime=[4, 8], throughput_options=opts, **overrides)
+    ref = J.schedule(jwf, jplat, kprime=[4, 8], throughput_options=opts, **overrides)
+    assert untimed_schedule_json(rep) == untimed_schedule_json(ref)
+    if latency_bound is None:
+        plan = rep.best.extras["throughput"]
+        assert plan.to_dict() == ref.best.extras["throughput"].to_dict()
+        assert plan.rate == plan.n_replicas / plan.period
+    else:
+        assert not rep.feasible and rep.infeasibility.stage == "throughput"
 
 
 @pytest.mark.parametrize("algorithm", ["dag_het_part", "dag_het_mem"])

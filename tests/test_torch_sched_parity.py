@@ -24,7 +24,8 @@ import repro_torch.core as T
 import repro_torch.core.memdag as T_memdag
 import repro_torch.core.partitioner as T_partitioner
 import repro_torch.core.workflows as T_workflows
-from repro_torch.obs.metrics import METRICS
+
+from _torch_parity import fresh_metrics  # noqa: F401 (fixture)
 
 ALGORITHMS = ("dag_het_part", "dag_het_mem")
 JAX = SimpleNamespace(core=J, memdag=J_memdag, partitioner=J_partitioner, workflows=J_workflows)
@@ -33,11 +34,6 @@ PRESETS = ("default_cluster", "small_cluster", "large_cluster", "more_het_cluste
            "less_het_cluster", "no_het_cluster")
 
 
-@pytest.fixture(autouse=True)
-def _isolate_port_metrics():
-    snap = METRICS.snapshot()
-    yield
-    METRICS.restore(snap)
 
 
 def _instance(pkg, family, n, seed=1, preset="default_cluster"):

@@ -21,6 +21,9 @@ rows), ``mixtral`` (phase 15 with its 32k prefill), ``mixtral_window``
 llama3_8b and olmoe_1b_7b, whose rows it reads); ``sim`` (phases 4, 12, 29
 and then 30: the replays of phase 29's schedules, the replans after a lost
 card beside phase 4's measured prefill, the elastic example on the card);
+``throughput`` (phases 4, 12, 29, 30 and then 31: the throughput planner
+on the seven families and the port's models on four cards, ``run_sustained``
+cold then seeded, the service at the paper's size, the host-only examples);
 and ``flash_ab``, which times the tensor-core flash kernels of other
 versions of ``csrc/flash_attention.cu`` against the current one (below).
 ``--vision-cut LAYERS PERIOD`` trains vision at another depth and
@@ -60,7 +63,7 @@ import torch  # noqa: E402
 PHASES = ("steps_prefill", "steps_decode", "steps_train", "steps_rwkv_train",
           "jamba_train", "vision_train", "dryrun_steps", "production_dryrun", "pipeline",
           "kernel_window", "backward_window", "mixtral", "mixtral_window", "train_lm_example",
-          "scheduler", "sim", "flash_ab")
+          "scheduler", "sim", "throughput", "flash_ab")
 # flash_ab's (b, s, hq, hkv, hd, causal): llama3_8b's, olmoe_1b_7b's and
 # seamless_m4t_v2's layers at their training length
 AB_SHAPES = [(1, 4096, 32, 8, 128, True), (1, 4096, 16, 16, 128, True),
@@ -200,6 +203,11 @@ def main(argv=None) -> int:
     def sim():
         rows, sched = scheduler()
         cs.phase_sim(smi, sched, rows["llama3_8b"])
+        return rows
+
+    def throughput():
+        rows = sim()
+        cs.phase_throughput(smi, rows["llama3_8b"])
     runs = {"steps_prefill": prefill,
             "steps_decode": decode,
             "steps_train": train,
@@ -219,6 +227,7 @@ def main(argv=None) -> int:
             "train_lm_example": cs.phase_train_lm_example,
             "scheduler": scheduler,
             "sim": sim,
+            "throughput": throughput,
             "flash_ab": lambda: flash_ab(args.ab_source)}
     failed = 0
     for name in args.phases:
