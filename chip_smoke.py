@@ -96,7 +96,10 @@ a non-zero exit if it fails:
                tensor-core and the CUDA-core backward on the same bf16
                inputs, the CUDA-core one in f32, autograd of the plain
                version and SDPA's backward (the yardstick only; also at
-               seamless_m4t_v2's 16/16 at hd 64, causal), the
+               seamless_m4t_v2's 16/16 at hd 64, causal; the kernel and
+               SDPA each the median of 20 windows of 10 back-to-back calls
+               between CUDA events, with the spread, and each one's device
+               time a call from a profiler window of 20 calls), the
                five-product bound and the bound of the products the
                tensor-core kernel runs (``WGMMA_BWD_PRODUCTS``); then both
                backward kernels under the window cases of phase 2, against
@@ -277,7 +280,13 @@ a non-zero exit if it fails:
                ``schedule()`` with both algorithms; every mapping valid
                (``validate_mapping`` returns no violation) and a rerun
                bit-equal (makespan, blocks, processors); the makespans,
-               their ratio, the wall seconds.  Then ``autoshard.plan`` of
+               their ratio, the wall seconds.  Each schedule whose k'
+               sweep has more than one point (every ``dag_het_part``; a
+               ``dag_het_mem`` sweep has one, so no pool) again with
+               ``workers=4`` (``SCHED_WORKERS``): bit-equal to the serial
+               mapping, no child process and no pool manager thread alive
+               after it, its wall seconds beside the serial ones.  Then
+               ``autoshard.plan`` of
                llama3_8b and olmoe_1b_7b at phase 4's 2 x 4096 prefill on
                ``h100_fleet_si({"h100": 1})``: one valid stage each, its GB
                beside the peak phases 4 and 12 measured, its estimated step
@@ -337,7 +346,13 @@ a non-zero exit if it fails:
                each of the 16 submissions in exactly one terminal status, a
                plan-cache hit, a warm replan at the failure, the trace's
                bytes equal on a rerun and with tracing on; planning wall
-               seconds by path.  (d) The examples
+               seconds by path; the same run with ``workers=2``
+               (``SERVICE_WORKERS``): its trace equal to the serial run's,
+               the whole report too (wall clock set aside as the parity
+               tests' ``untimed_service_json`` does) but for the sweep's
+               work counters (``SWEEP_WORK_COUNTERS``) and the histograms'
+               min, max and sum, and no child process or pool manager
+               thread alive after it.  (d) The examples
                ``heterogeneous_scheduling_torch.py``,
                ``multi_tenant_service_torch.py`` and
                ``sustained_throughput_torch.py``, each a process of its own
@@ -364,15 +379,18 @@ import contextlib
 import gc
 import importlib
 import json
+import multiprocessing
 import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures.process import _ExecutorManagerThread
 from dataclasses import replace
 from pathlib import Path
 
@@ -442,6 +460,7 @@ TIMED_SHAPES = {MAIN_SHAPE: ("llama3_8b", ("f32", "bf16"), (True,)),
                 SEAMLESS_SHAPE: ("seamless_m4t_v2", ("bf16",), (False, True))}
 PREFILL = (2, 4096)                 # prompt batch x length of phase 3
 SCHED_N, SCHED_SEED = 1000, 1       # phase 29: tasks of each family's workflow, its seed
+SCHED_WORKERS = 4                   # phase 29: the pool of each schedule's parallel rerun
 MAIN_PATH = (2, 256)                # batch x prompt length of serve.main below
 CONSISTENCY = (2, 80)               # batch x length of the 4-layer f32 prefill vs decode
 KERNEL_SHAPES = [
@@ -542,6 +561,7 @@ THROUGHPUT_REPLICAS = {"llama3_8b": 4, "mixtral_8x7b": 2}
 # [0, 18848.16], so the failure of the two last processors at 3000 strikes
 # it, and the spare arrives at 20000 with jobs queued
 SERVICE_KPRIME = [2, 4, 6]
+SERVICE_WORKERS = 2                 # the pool of phase 31 (c)'s parallel run
 SERVICE_SPACING = 100.0
 SERVICE_FAILURE_T, SERVICE_ARRIVAL_T = 3000.0, 20000.0
 HOST_EXAMPLES = {"heterogeneous_scheduling_torch.py": "bit-identical to analytic: True",
@@ -757,6 +777,16 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def windows_ms(fn, reps: int = 10, windows: int = 20) -> dict:
+    """``time_ms(fn, reps)`` taken ``windows`` times (each window its own
+    warm-up, then ``reps`` calls back to back between two CUDA events):
+    the median window and the spread (min, quartiles, max)."""
+    times = [time_ms(fn, reps) for _ in range(windows)]
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return dict(median=statistics.median(times), min=min(times), q1=q1, q3=q3,
+                max=max(times), reps=reps, windows=windows)
 
 
 # the bound column's formulas (kernels/cost.py)
@@ -1197,10 +1227,10 @@ def wkv_tensor_flops(b, h, s, hd) -> int:
     return per_chunk * (hd // 16) * b * h * -(-s // 16)
 
 
-def profiled_ms(fn, reps: int, kernels) -> dict:
-    """``{name: (device ms, launches recorded)}`` of the kernels whose name
-    contains each of ``kernels``, over ``reps`` calls of ``fn`` in one
-    ``torch.profiler`` window after one call outside it."""
+def profiled_kernels(fn, reps: int) -> dict:
+    """``{kernel name: (device ms, launches recorded)}`` of every kernel
+    over ``reps`` calls of ``fn`` in one ``torch.profiler`` window after
+    one call outside it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1209,15 +1239,44 @@ def profiled_ms(fn, reps: int, kernels) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for name in kernels:
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
-                us = getattr(e, "self_device_time_total", None)
-                total += e.self_cuda_time_total if us is None else us
-                count += e.count
-        out[name] = (total / 1e3, count)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            total, count = out.get(e.key, (0.0, 0))
+            out[e.key] = (total + (e.self_cuda_time_total if us is None else us) / 1e3,
+                          count + e.count)
     return out
+
+
+def profiled_ms(fn, reps: int, kernels) -> dict:
+    """``{name: (device ms, launches recorded)}`` of the kernels whose name
+    contains each of ``kernels``, over ``reps`` calls of ``fn`` in one
+    ``torch.profiler`` window after one call outside it."""
+    seen = profiled_kernels(fn, reps)
+    return {name: (sum(t for key, (t, _) in seen.items() if name in key),
+                   sum(c for key, (_, c) in seen.items() if name in key))
+            for name in kernels}
+
+
+def call_device_ms(fn, reps: int = 20) -> dict:
+    """Device time of one call of ``fn``, every kernel it launches, from
+    one profiler window of ``reps`` calls: each kernel's time per launch
+    recorded, times its launches a call (those recorded over ``reps``,
+    rounded; the profiler drops a few launches of a window).  A window in
+    which a kernel's launches are not within a quarter of a whole number
+    a call (most of them dropped) is taken again, three times at most;
+    after that ``per_call`` is None (a reading, not a check)."""
+    for _ in range(3):
+        seen = profiled_kernels(fn, reps)
+        counts = {k: c for k, (_, c) in seen.items()}
+        per_call = {k: round(c / reps) for k, c in counts.items()}
+        if seen and all(per_call[k] >= 1 and abs(c / reps - per_call[k]) <= 0.25
+                        for k, c in counts.items()):
+            return dict(per_call=sum(t / c * per_call[k] for k, (t, c) in seen.items()),
+                        launches_a_call=sum(per_call.values()),
+                        launches_seen=sum(counts.values()), reps=reps)
+        emit("profiler_retry", kernel="every", seen=counts, want=reps)
+    return dict(per_call=None, launches_seen=counts, reps=reps)
 
 
 def device_ms(fn, reps: int, kernel: str) -> float:
@@ -2227,8 +2286,9 @@ def backward_times(q, k, v, do, name) -> dict:
     bh, s, hd = q.shape
     reps = 5
     _, lse = fa._forward(q, k, v, True, with_lse=True)
-    row = dict(kernel_ms=time_ms(
-        lambda: fa.flash_attention_bwd(q, k, v, lse, do, causal=True), 10))
+    kernel_bwd = lambda: fa.flash_attention_bwd(q, k, v, lse, do, causal=True)  # noqa: E731
+    row = dict(kernel_windows_ms=windows_ms(kernel_bwd))
+    row["kernel_ms"] = row["kernel_windows_ms"]["median"]
     if name == "bf16":
         row["cuda_core_kernel_ms"] = cuda_core_bwd_bf16_ms(q, k, v, lse, do, reps)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -2241,8 +2301,13 @@ def backward_times(q, k, v, do, name) -> dict:
     out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                            enable_gqa=True)
     do4 = do.view(b, -1, s, hd)
-    row["library_ms"] = time_ms(
-        lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True), reps)
+    # SDPA's backward timed as the kernel is: the median of 20 windows of
+    # 10 back-to-back calls, with the spread; then each one's device time
+    sdpa_bwd = lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True)  # noqa: E731
+    row["library_windows_ms"] = windows_ms(sdpa_bwd)
+    row["library_ms"] = row["library_windows_ms"]["median"]
+    row["library_device_ms"] = call_device_ms(sdpa_bwd)
+    row["kernel_device_ms"] = call_device_ms(kernel_bwd)
     del out
     flops = bwd_flops(bh, s, hd, True)
     row["bound_ms"], row["bound_by"] = bwd_bound_ms(bh, k.shape[0], s, hd, True, name,
@@ -3623,6 +3688,37 @@ def schedule_row(wf, platform, algorithm: str) -> tuple[dict, object]:
                 rerun_wall_s=rerun_s, rerun_bit_equal=same), rep
 
 
+def pool_leftovers() -> dict:
+    """The child processes and process-pool manager threads alive now."""
+    return dict(children=sorted(p.pid for p in multiprocessing.active_children()),
+                manager_threads=[t.name for t in threading.enumerate()
+                                 if isinstance(t, _ExecutorManagerThread)])
+
+
+def parallel_schedule_row(wf, platform, algorithm: str, serial, serial_s: float,
+                          smi: str) -> dict:
+    """Phase 29: ``schedule()`` of ``wf`` on a pool of ``SCHED_WORKERS``:
+    the mapping bit-equal to the serial run's (makespan, blocks,
+    processors), and no child process or pool manager thread alive after
+    it returns.  ``serial_s`` is the serial rerun's seconds: like this
+    call, it follows a first call of the same workflow."""
+    t0 = time.perf_counter()
+    rep = schedule(wf, platform, algorithm=algorithm, workers=SCHED_WORKERS)
+    wall_s = time.perf_counter() - t0
+    left = pool_leftovers()
+    same = (rep.makespan == serial.makespan
+            and rep.summary.block_of_task == serial.summary.block_of_task
+            and rep.summary.proc_of_block == serial.summary.proc_of_block)
+    row = dict(workers=SCHED_WORKERS, bit_equal_to_serial=same,
+               serial_rerun_wall_s=serial_s, wall_s=wall_s, over_serial_rerun=wall_s / serial_s,
+               left_after=left, nvidia_smi=smi)
+    check(same, f"{wf.name} {algorithm}: workers={SCHED_WORKERS} gave {rep.makespan!r}, "
+          f"not the serial {serial.makespan!r} with the same blocks")
+    check(not left["children"] and not left["manager_threads"],
+          f"{wf.name} {algorithm}: the pool outlived schedule(): {left}")
+    return row
+
+
 def phase_scheduler(smi: str, prefill_rows: dict) -> dict:
     """Phase 29: the paper's scheduler on the card's host, then its plan of
     the port's models against what phases 4 and 12 measured on the card
@@ -3636,11 +3732,16 @@ def phase_scheduler(smi: str, prefill_rows: dict) -> dict:
         row = {}
         for algo in ("dag_het_part", "dag_het_mem"):
             row[algo], rep = schedule_row(wf, platform, algo)
+            if len(rep.sweep) > 1:      # a pool only where the k' sweep has points to share
+                row[algo]["parallel"] = parallel_schedule_row(wf, platform, algo, rep,
+                                                              row[algo]["rerun_wall_s"], smi)
             reports[(family, algo)] = (wf, rep)
+        check("parallel" in row["dag_het_part"],
+              f"{family}: dag_het_part's k' sweep has one point, so no pool ran")
         row["dag_het_mem_over_dag_het_part"] = (row["dag_het_mem"]["makespan"]
                                                 / row["dag_het_part"]["makespan"])
         emit("scheduler", family=family, tasks=wf.n, seed=SCHED_SEED, platform=platform.name,
-             procs=platform.k, **row)
+             procs=platform.k, nvidia_smi=smi, **row)
         families[family] = row
     b, s = PREFILL
     shape = ShapeConfig("chip_smoke_prefill", seq_len=s, global_batch=b, kind="prefill")
@@ -3933,12 +4034,12 @@ def phase_throughput_models(smi: str, llama_prefill: dict) -> dict:
     return rows
 
 
-def service_run(obs=None):
+def service_run(obs=None, workers: int = 1):
     """Phase 31 (c)'s service run: the seven families twice each, two
     malformed payloads, a failure while a job runs and a later arrival."""
     platform = default_cluster()
     config = ServiceConfig(
-        scheduler=SchedulerConfig(simulate=True, kprime=SERVICE_KPRIME),
+        scheduler=SchedulerConfig(simulate=True, kprime=SERVICE_KPRIME, workers=workers),
         quotas=QuotaConfig(tenants={"alice": TenantQuota(weight=2.0),
                                     "bob": TenantQuota(max_running=1)}),
         name="chip_smoke", obs=obs)
@@ -3956,11 +4057,60 @@ def service_run(obs=None):
     return subs, run_service(subs, platform, events, config)
 
 
+#: histograms whose observations are wall-clock seconds
+WALL_HISTOGRAMS = ("service_plan_latency_s", "sched_sweep_point_s")
+#: the sweep's counters that a pooled run counts apart from a serial one:
+#: each pool worker keeps its own memo, where the serial sweep shares one,
+#: so Steps 1 and 2 do other work for the same decisions
+SWEEP_WORK_COUNTERS = ("step1_moves", "step1_passes", "step1_scalar_calls",
+                       "step2_flat_blocks", "step2_memo_hits", "step2_memo_misses",
+                       "step2_scalar_blocks")
+
+
+def untimed_service(rep) -> dict:
+    """``ServiceReport.to_json()`` with the wall-clock fields set aside, as
+    the port's parity tests compare it: ``total_time_s``, each planning
+    call's seconds (the paths and the number of calls stay) and the
+    wall-clock histograms, of which only the count stays.  A copy of
+    ``tests/_torch_parity.untimed_service_json`` (this script imports no
+    test module): keep the two in step."""
+    d = json.loads(rep.to_json())
+    d["total_time_s"] = 0.0
+    d["plan_wall_s"] = {k: [0.0] * len(v) for k, v in d["plan_wall_s"].items()}
+    hists = d["metrics"].get("histograms", {})
+    for name in WALL_HISTOGRAMS:
+        if name in hists:
+            hists[name] = {"count": hists[name]["count"]}
+    return d
+
+
+def pool_neutral(d: dict) -> dict:
+    """``d``, an ``untimed_service`` dict, with what a pooled run may
+    count apart from a serial one set aside: ``SWEEP_WORK_COUNTERS`` and
+    each histogram's ``min``, ``max`` and ``sum`` (a report's histogram is
+    a delta of the process's running one, so its sum can round apart in
+    the last bit, and a pool worker's delta carries its earlier
+    observations, as ``_pool_neutral`` in the throughput parity tests
+    says).  Everything else must be equal."""
+    for name in SWEEP_WORK_COUNTERS:
+        d["cache_stats"].pop(name, None)
+    for hist in d["metrics"].get("histograms", {}).values():
+        for field in ("min", "max", "sum"):
+            hist.pop(field, None)
+    return d
+
+
 def phase_service(smi: str) -> dict:
-    """Phase 31 (c): the service at the paper's size, run three times."""
+    """Phase 31 (c): the service at the paper's size, run three times, then
+    once with a parallel k' sweep (``SERVICE_WORKERS``)."""
     (subs, rep), run_s = wall(service_run)
     (_, again), rerun_s = wall(service_run)
     (_, traced), traced_s = wall(lambda: service_run(ObsConfig(enabled=True)))
+    (_, pooled), pooled_s = wall(lambda: service_run(workers=SERVICE_WORKERS))
+    pooled_left = pool_leftovers()
+    serial_d, pooled_d = untimed_service(rep), untimed_service(pooled)
+    pooled_differs = sorted(k for k in serial_d if serial_d[k] != pooled_d.get(k))
+    pooled_equal = pool_neutral(serial_d) == pool_neutral(pooled_d)
     jobs = rep.jobs
     terminal = ("completed", "infeasible", "rejected")
     statuses = {s: sum(j.status == s for j in jobs) for s in terminal}
@@ -3979,7 +4129,15 @@ def phase_service(smi: str) -> dict:
                traced_trace_equal=traced.trace.to_json() == trace, spans=len(traced.spans),
                plan_wall_s={path: {"calls": len(v), "sum": sum(v), "mean": sum(v) / len(v),
                                    "max": max(v)} for path, v in rep.plan_wall_s.items()},
-               wall_s={"run": run_s, "rerun": rerun_s, "traced": traced_s}, nvidia_smi=smi)
+               pooled={"workers": SERVICE_WORKERS,
+                       "trace_equal": pooled_d["trace"] == serial_d["trace"],
+                       "untimed_report_keys_that_differ": pooled_differs,
+                       "report_equal_but_sweep_work_and_histogram_sums": pooled_equal,
+                       "plan_wall_s_sum": sum(sum(v) for v in pooled.plan_wall_s.values()),
+                       "left_after": pooled_left},
+               wall_s={"run": run_s, "rerun": rerun_s, "traced": traced_s,
+                       "pooled": pooled_s, "pooled_over_rerun": pooled_s / rerun_s},
+               nvidia_smi=smi)
     emit("service", **row)
     check(accounted and statuses["rejected"] == 2 and statuses["infeasible"] == 0,
           f"service: the {len(subs)} submissions end as {statuses}")
@@ -3988,6 +4146,11 @@ def phase_service(smi: str) -> dict:
           f"service: no warm replan at the failure ({row['replans']})")
     check(row["rerun_trace_equal"] and row["traced_trace_equal"] and row["spans"] > 0,
           "service: the trace differs on a rerun or with tracing on")
+    check(row["pooled"]["trace_equal"] and pooled_equal,
+          f"service: workers={SERVICE_WORKERS} differs from the serial run beyond "
+          f"the sweep's work counters and the histograms' sums in {pooled_differs}")
+    check(not pooled_left["children"] and not pooled_left["manager_threads"],
+          f"service: a pool outlived run_service(): {pooled_left}")
     return row
 
 
@@ -4054,6 +4217,10 @@ def backward_row(main_row: dict, checks: list, variant: str, launches: int, path
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "kernel_windows_ms": main_row["kernel_windows_ms"],
+        "library_windows_ms": main_row["library_windows_ms"],
+        "library_device_ms": main_row["library_device_ms"],
+        "kernel_device_ms": main_row["kernel_device_ms"],
         "f32_cuda_core_bound_ms": main_row["f32_cuda_core_bound_ms"],
         "achieved_tflops": main_row["kernel_tflops"],
         "bound_share": main_row["bound_share"],

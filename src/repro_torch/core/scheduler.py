@@ -1160,6 +1160,17 @@ def _pool_init(wf: Workflow, platform: Platform, spec: _RunSpec) -> None:
 
 def _make_pool(wf: Workflow, platform: Platform, spec: _RunSpec,
                max_workers: int) -> ProcessPoolExecutor:
+    """A pool for one sweep, its workers forked from the parent as it
+    stands (or spawned where ``fork`` is missing).
+
+    The caller joins the pool before ``schedule()`` returns
+    (``shutdown(wait=True)``; see ``Scheduler._run_sweep``).  A pool left
+    to wind down after its sweep keeps its manager thread alive, and that
+    thread takes its wakeup lock now and then; the next sweep's ``fork``
+    can copy that lock held into a worker, which then blocks for good in
+    ``concurrent.futures``' exit hook, and the parent blocks joining it at
+    its own exit.
+    """
     import multiprocessing as mp
 
     try:
@@ -1297,6 +1308,16 @@ class Scheduler:
 
     def _run_sweep(self, wf: Workflow,
                    platform: Platform) -> ScheduleReport:
+        """The k' sweep, serial or on a process pool (``workers > 1``).
+
+        The pool is joined before this returns: on a normal return, after
+        a ``time_budget_s`` truncation, and when a callback raises.  The
+        join cancels the points not yet started and waits for those
+        already running (on the exception path that is all it waits
+        for), then for the workers and the pool's manager thread, so no
+        process or thread of the sweep outlives it (``_make_pool`` says
+        why that matters).
+        """
         cfg = self.config
         t0 = time.perf_counter()
         from .memdag import step2_impl
@@ -1370,7 +1391,7 @@ class Scheduler:
                     for cb in callbacks:
                         cb(point)
             finally:
-                pool.shutdown(wait=False, cancel_futures=True)
+                pool.shutdown(wait=True, cancel_futures=True)  # see _make_pool
                 _WORKER_STATE.clear()  # parent copy: drop wf references
         else:
             memo: dict = {}  # content-keyed reuse across the serial sweep

@@ -6,11 +6,17 @@ events cross by value (processors, links, failure rates and power;
 JSON both write, with the wall-clock fields set aside.
 """
 import json
+import multiprocessing
 import textwrap
+import threading
+import time
+from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures.process import _ExecutorManagerThread
 
 import pytest
 
 import repro.core as J
+import repro.core.scheduler as J_scheduler
 import repro.scenario as J_scenario
 import repro_torch.core as T
 import repro_torch.scenario as T_scenario
@@ -61,6 +67,47 @@ def fresh_metrics():
     J_METRICS.reset()
     yield
     METRICS.restore(snap)
+
+
+#: seconds a test's process pools get to wind down after it before it fails
+POOL_JOIN_S = 30.0
+
+
+class JoiningPool(ProcessPoolExecutor):
+    """A ``ProcessPoolExecutor`` whose ``shutdown`` always waits for its
+    workers and its manager thread, whatever the caller asked."""
+
+    def shutdown(self, wait=True, *, cancel_futures=False):
+        super().shutdown(wait=True, cancel_futures=cancel_futures)
+
+
+def manager_threads() -> list:
+    """The process pools' manager threads alive in this process."""
+    return [t for t in threading.enumerate() if isinstance(t, _ExecutorManagerThread)]
+
+
+@pytest.fixture(autouse=True)
+def joined_pools(monkeypatch):
+    """The reference's k' sweeps join their pools for the length of a test,
+    as the port's do: ``repro.core.scheduler`` looks ``ProcessPoolExecutor``
+    up in its globals, and a pool whose ``shutdown`` waits gives the same
+    results.  A pool that outlives its sweep can leave a later ``fork``'s
+    worker blocked on a copied lock at its exit, and the test process
+    blocked joining it at its own.  At the test's end the manager thread
+    of every pool the test started is joined within ``POOL_JOIN_S``, or
+    the test fails and names the child processes still alive."""
+    before = set(manager_threads())
+    monkeypatch.setattr(J_scheduler, "ProcessPoolExecutor", JoiningPool)
+    yield
+    end = time.monotonic() + POOL_JOIN_S
+    started = [t for t in manager_threads() if t not in before]
+    for t in started:
+        t.join(max(0.0, end - time.monotonic()))
+    left = [t for t in started if t.is_alive()]
+    if left:
+        pids = sorted(p.pid for p in multiprocessing.active_children())
+        pytest.fail(f"{len(left)} process pool(s) still running {POOL_JOIN_S} s after the "
+                    f"test; child processes alive: {pids}")
 
 
 def platform_as(plat, side: str):

@@ -45,7 +45,11 @@ from repro_torch.objectives import (
 )
 from repro_torch.sim import simulate
 
-from _torch_parity import fresh_metrics, untimed_schedule_json  # noqa: F401 (fixture)
+from _torch_parity import (  # noqa: F401 (fixtures)
+    fresh_metrics,
+    joined_pools,
+    untimed_schedule_json,
+)
 
 
 @pytest.fixture(scope="module")

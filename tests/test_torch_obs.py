@@ -48,6 +48,8 @@ from repro_torch.obs import (
 )
 from repro_torch.service import ServiceConfig, ServiceReport, Submission, run_service
 
+from _torch_parity import joined_pools  # noqa: F401 (fixture)
+
 
 @pytest.fixture(autouse=True)
 def _isolate_port_metrics():

@@ -25,7 +25,7 @@ import repro_torch.core.memdag as T_memdag
 import repro_torch.core.partitioner as T_partitioner
 import repro_torch.core.workflows as T_workflows
 
-from _torch_parity import fresh_metrics  # noqa: F401 (fixture)
+from _torch_parity import fresh_metrics, joined_pools  # noqa: F401 (fixtures)
 
 ALGORITHMS = ("dag_het_part", "dag_het_mem")
 JAX = SimpleNamespace(core=J, memdag=J_memdag, partitioner=J_partitioner, workflows=J_workflows)

@@ -69,6 +69,7 @@ from _torch_parity import (  # noqa: F401 (fixture)
     JAX_BLOCKER,
     events_as,
     fresh_metrics,
+    joined_pools,
     platform_as,
     untimed_service_json,
 )

@@ -57,7 +57,11 @@ from repro_torch.sim import (
     trace_memory,
 )
 
-from _torch_parity import fresh_metrics, untimed_schedule_json  # noqa: F401 (fixture)
+from _torch_parity import (  # noqa: F401 (fixtures)
+    fresh_metrics,
+    joined_pools,
+    untimed_schedule_json,
+)
 
 ANCHOR_N = 1000
 

@@ -64,6 +64,7 @@ from repro_torch.throughput.pipeline import _pipelined_memory_trace
 
 from _torch_parity import (  # noqa: F401 (fixture)
     fresh_metrics,
+    joined_pools,
     untimed_schedule_json,
     untimed_service_json,
 )
