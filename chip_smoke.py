@@ -157,8 +157,8 @@ a non-zero exit if it fails:
 12. olmoe      full olmoe_1b_7b (16 layers, d 2048, 16/16 heads of 128, 64
                experts top-8 of d_ff 1024, bf16, seeded random weights):
                ``prefill`` on 2 x 4096 tokens, 16 tensor-core flash launches
-               per call; the tokens each MoE layer drops at capacity factor
-               1.25; a profiler window over one prefill call (busy share,
+               per call; the tokens its MoE layers drop at capacity factor
+               1.25 (the program's ``moe.*`` counters); a profiler window over one prefill call (busy share,
                top kernels, device time under the MoE's ops: the expert
                products' ``aten::bmm``) and one 4-slot decode step;
                ``ServeLoop(slots=4)`` answering 8 requests; then
@@ -195,7 +195,7 @@ a non-zero exit if it fails:
                tensor-core flash launch per call (its one attention layer) and
                3 ``mamba_seq`` calls (the selective scan, plain torch); the
                tokens its 2 MoE layers drop; a profiler window with the device
-               time under the scan's named range (``mamba_selective_scan``);
+               time under the scan's device span (``repro_torch.mamba.scan``);
                a teacher-forced ``greedy_decode`` through ``mamba_step``;
                ``serve.main --full-size`` of the whole config must refuse its
                799 GB before allocating; then f32 at 2 layers (period 2: mamba,
@@ -425,7 +425,7 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosi
 from repro_torch.runtime import (FailureInjector, Request, ServeLoop, Trainer,  # noqa: E402
                                  TrainerConfig, pipeline_apply, rescale_plan,
                                  run_with_restarts, stack_stage_params)
-from repro_torch.obs import ObsConfig  # noqa: E402
+from repro_torch.obs import METRICS, ObsConfig  # noqa: E402
 from repro_torch.scenario import ProcArrival, ProcFailure  # noqa: E402
 from repro_torch.service import (PlanCache, QuotaConfig, ServiceConfig,  # noqa: E402
                                  Submission, TenantQuota, run_service, run_sustained)
@@ -1227,6 +1227,16 @@ def wkv_tensor_flops(b, h, s, hd) -> int:
     return per_chunk * (hd // 16) * b * h * -(-s // 16)
 
 
+def is_device_work(e) -> bool:
+    """Whether an entry of ``key_averages()`` is a kernel, copy or set on
+    the card: a device-side entry that is not a named range's device
+    span (a user annotation, such as the program's ``repro_torch.*``
+    device spans), which covers kernels counted in their own entries."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("repro_torch."))
+
+
 def profiled_kernels(fn, reps: int) -> dict:
     """``{kernel name: (device ms, launches recorded)}`` of every kernel
     over ``reps`` calls of ``fn`` in one ``torch.profiler`` window after
@@ -1240,7 +1250,7 @@ def profiled_kernels(fn, reps: int) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if is_device_work(e):
             us = getattr(e, "self_device_time_total", None)
             total, count = out.get(e.key, (0.0, 0))
             out[e.key] = (total + (e.self_cuda_time_total if us is None else us) / 1e3,
@@ -1911,9 +1921,9 @@ def profile_window(fn, reps: int, top: int = 6, named: str = "", ops=()) -> dict
                 us = getattr(e, "device_time_total", None)
                 per_op[e.key] += (e.cuda_time_total if us is None else us) / 1e3 / reps
             continue
-        # device-side entries only: a CPU op's own entry repeats the
-        # time of the kernels it launched
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # device work only: a CPU op's own entry repeats the time of the
+        # kernels it launched, and so does a named range's device span
+        if not is_device_work(e):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2717,43 +2727,44 @@ MOE_OPS = ("aten::einsum", "aten::bmm", "aten::mm", "aten::sort", "aten::index",
            "aten::scatter", "aten::scatter_")
 
 
-def moe_drops(model, tokens) -> list:
-    """Each MoE layer's routing in one prefill of ``tokens``, in layer
-    order: the (token, expert) pairs routed and those that no expert slot
-    took at the model's capacity factor."""
-    seen, original = [], moe_mod.moe_ffn
-
-    def counting(params, x, *, top_k, capacity_factor, **kw):
-        route = moe_mod.moe_route(params, x, top_k=top_k, capacity_factor=capacity_factor)
-        seen.append(dict(routed=int((route.routed > 0).sum()), dropped=route.dropped()))
-        return original(params, x, top_k=top_k, capacity_factor=capacity_factor, **kw)
-    moe_mod.moe_ffn = counting
-    try:
+def moe_drops(model, tokens, layers: int) -> dict:
+    """The MoE layers' routing in one prefill of ``tokens``, from the
+    program's counters (kept while a profiler records): the (token,
+    expert) pairs routed, the expert slots, the slots that took a token,
+    and the pairs that no expert slot took.  Checks that ``layers`` MoE
+    layers each routed every token's k choices to E x C slots, and that
+    no more slots took a token than there are pairs or slots."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, (g, t) = model.cfg, tokens.shape
+    cap = moe_mod.moe_capacity(t, cfg.n_experts, cfg.experts_per_token, model.capacity_factor)
+    before = METRICS.snapshot()
+    with profile(activities=[ProfilerActivity.CPU]):
         serve.prefill(model, tokens)
-    finally:
-        moe_mod.moe_ffn = original
-    return seen
+    moved = METRICS.delta(before).get("counters", {})
+    routed, slots, taken = (moved.get(f"moe.{k}", 0)
+                            for k in ("pairs_routed", "slots", "slots_taken"))
+    out = dict(routed=routed, slots=slots, taken=taken, dropped=routed - taken)
+    check(routed == layers * g * t * cfg.experts_per_token
+          and slots == layers * g * cfg.n_experts * cap and 0 <= taken <= min(routed, slots),
+          f"MoE routing counts {out} over {layers} layers")
+    return out
 
 
 def phase_olmoe(model) -> dict:
     """Full olmoe_1b_7b serving: the prefill of phase 4 (16 tensor-core
-    launches a call), the tokens each layer drops, where the time goes, and
+    launches a call), the tokens its MoE layers drop, where the time goes, and
     ``ServeLoop``."""
     cfg = model.cfg
     row = phase_prefill(model)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
-    drops = moe_drops(model, tokens)
-    dropped = [d["dropped"] for d in drops]
+    drops = moe_drops(model, tokens, cfg.n_layers)
     emit("olmoe_drops", arch=cfg.name, batch=PREFILL[0], seq=PREFILL[1],
          capacity_factor=model.capacity_factor,
          capacity=moe_mod.moe_capacity(PREFILL[1], cfg.n_experts, cfg.experts_per_token,
                                        model.capacity_factor),
-         routed_per_layer=[d["routed"] for d in drops], dropped_per_layer=dropped,
-         dropped_share_per_layer=[d["dropped"] / d["routed"] for d in drops])
-    check(len(drops) == cfg.n_layers and
-          all(d["routed"] == PREFILL[0] * PREFILL[1] * cfg.experts_per_token for d in drops),
-          f"MoE routing counts {drops}")
+         **drops, dropped_share=drops["dropped"] / drops["routed"],
+         slot_fill=drops["taken"] / drops["slots"])
     prefill = phase_profile(model, top=10, ops=MOE_OPS)
     row["profile"] = prefill
     row["expert_products_share"] = prefill["op_device_share"]["aten::bmm"]
@@ -3033,8 +3044,8 @@ def phase_jamba(cfg_full) -> dict:
     """jamba_15_large at full width, ``JAMBA_CUT``, bf16: prefill (one
     tensor-core flash launch a call: its one attention layer; the three
     Mamba layers' selective scan in plain torch), the tokens its two MoE
-    layers drop, a profile with the device time under the scan's named
-    range, a teacher-forced ``greedy_decode`` through ``mamba_step``, and
+    layers drop, a profile with the device time under the scan's device
+    span, a teacher-forced ``greedy_decode`` through ``mamba_step``, and
     the whole config's refusal."""
     cfg = replace(cfg_full, **JAMBA_CUT)
     model = LM(cfg, seed=SEED, device="cuda")        # bf16
@@ -3047,12 +3058,9 @@ def phase_jamba(cfg_full) -> dict:
     check(seen == {"mamba_seq": 3 * 2}, f"mamba_seq calls in two prefills {seen}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
     tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
-    drops = moe_drops(model, tokens)
-    check(len(drops) == 2 and all(
-        d["routed"] == PREFILL[0] * PREFILL[1] * cfg.experts_per_token for d in drops),
-        f"MoE routing counts {drops}")
+    drops = moe_drops(model, tokens, 2)
     prof = profile_window(lambda: serve.prefill(model, tokens), 1, top=10,
-                          ops=("mamba_selective_scan", *MOE_OPS))
+                          ops=("repro_torch.mamba.scan", *MOE_OPS))
     scan_ms, prefill_s = scan_event_ms(model, tokens)
     decode = greedy_row(model, tokens, mamba_step=transformer_mod.ssm_mod)
     b, plen, new = NEW_DECODE
@@ -3060,9 +3068,8 @@ def phase_jamba(cfg_full) -> dict:
           f"jamba decode: {decode['calls']}, flash {decode['flash_launches']}")
     row = dict(prefill=row, params=sum(p.numel() for p in model.parameters()),
                layout=layout, capacity_factor=model.capacity_factor,
-               dropped_per_layer=[d["dropped"] for d in drops],
-               dropped_share_per_layer=[d["dropped"] / d["routed"] for d in drops],
-               profile=prof, scan_share=prof["op_device_share"]["mamba_selective_scan"],
+               dropped=drops["dropped"], dropped_share=drops["dropped"] / drops["routed"],
+               profile=prof, scan_share=prof["op_device_share"]["repro_torch.mamba.scan"],
                scan_event_ms=scan_ms, scan_event_share_of_wall=scan_ms / (prefill_s * 1e3),
                decode=decode)
     del model

@@ -20,8 +20,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.obs.tracer import device_span
 
 __all__ = ["init_mamba", "mamba_seq", "mamba_step", "init_mamba_cache"]
 
@@ -145,8 +146,8 @@ def mamba_seq(params: dict, x: torch.Tensor, chunk: int = 256,
 
     h = torch.zeros((bsz, d_in, n), dtype=torch.float32, device=x.device)
     ys = []
-    # a named range: profiles read the scan's device time under it
-    with record_function("mamba_selective_scan"):
+    # a device span: profiles read the scan's device time under it
+    with device_span("repro_torch.mamba.scan"):
         for i in range(n_chunks):
             dt_k, b_k, c_k, x_k = (t[:, i * chunk:(i + 1) * chunk] for t in padded)
             args = (h, dt_k, a, b_k, c_k, x_k)

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.obs.tracer import device_span
 from . import attention as attn
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
@@ -326,16 +327,18 @@ class LM(nn.Module):
 
     def _self_attn(self, p, x, cos_sin, positions, causal=True):
         cfg = self.cfg
-        h = rms_norm(x, p["norm"], cfg.norm_eps)
-        if x.shape[1] > 1:
-            h = self.shard_act(h, "attn_in")
 
         def attend(q, k, v):
-            q = apply_rope(q, cos_sin, positions)
-            k = apply_rope(k, cos_sin, positions)
-            return attn.gqa_attention(q, k, v, causal=causal, chunk=self.attn_chunk,
-                                      sliding_window=cfg.sliding_window)
-        return self._out_proj(p, self._heads(p, h, h, attend))
+            with device_span("repro_torch.attention.core"):
+                q = apply_rope(q, cos_sin, positions)
+                k = apply_rope(k, cos_sin, positions)
+                return attn.gqa_attention(q, k, v, causal=causal, chunk=self.attn_chunk,
+                                          sliding_window=cfg.sliding_window)
+        with device_span("repro_torch.attention"):
+            h = rms_norm(x, p["norm"], cfg.norm_eps)
+            if x.shape[1] > 1:
+                h = self.shard_act(h, "attn_in")
+            return self._out_proj(p, self._heads(p, h, h, attend))
 
     def _cross_attn(self, p, x, memory):
         """memory: [B, M, d] (frontend embeddings / encoder output), its K

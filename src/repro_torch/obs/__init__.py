@@ -7,7 +7,11 @@ simulator (:mod:`repro_torch.sim`), scenario runner and service loop
 * :mod:`repro_torch.obs.tracer` — hierarchical wall-clock spans
   (``run → sweep_point → stage.* → probe.*`` on the scheduler side,
   ``service.admit / service.dispatch / service.plan / service.replan /
-  service.complete`` on the service side) behind a no-op fast path;
+  service.complete`` on the service side) behind a no-op fast path,
+  and the model code's device spans (``repro_torch.attention``,
+  ``repro_torch.moe.*``, ``repro_torch.train.*``), which are
+  ``torch.profiler`` ranges while a profiler records and no-ops
+  otherwise;
 * :mod:`repro_torch.obs.metrics` — the :data:`~repro_torch.obs.metrics.METRICS`
   registry of counters + gauges + fixed-bucket histograms
   (``repro_torch.core.counters`` is its counter facet), with the
@@ -22,7 +26,8 @@ Everything is driven by an :class:`ObsConfig` threaded through
 ``SchedulerConfig(obs=...)`` and ``ServiceConfig(obs=...)``.  The
 contract: instrumentation is **inert** (bit-identical makespans and
 service traces on/off) and near-free when disabled.  See
-``docs/observability.md`` for the span taxonomy and metric names.
+``docs/observability.md`` for the span taxonomy and metric names, and
+``docs/observability_torch.md`` for the device spans and MoE counters.
 """
 from __future__ import annotations
 
@@ -51,6 +56,8 @@ from .tracer import (
     Tracer,
     activate,
     current_tracer,
+    device_span,
+    profiler_recording,
     span_attr,
     trace_span,
     tracing_active,
@@ -68,8 +75,10 @@ __all__ = [
     "Tracer",
     "activate",
     "current_tracer",
+    "device_span",
     "percentile",
     "percentiles",
+    "profiler_recording",
     "service_virtual_events",
     "setup_logging",
     "sim_proc_events",

@@ -8,7 +8,11 @@ pipeline run:
 * **counters** — monotonically increasing integers (``counter(name)``).
   :data:`METRICS.counters` *is* the ``collections.Counter`` that
   ``repro_torch.core.counters.COUNTERS`` aliases, so every existing
-  ``bump()`` call site feeds this registry unchanged.
+  ``bump()`` call site feeds this registry unchanged.  Device code adds
+  a count it holds on the device with ``device_counter(name, tensor)``:
+  the 0-d tensors are summed on the device and folded into the integer
+  when the registry is read (``snapshot`` / ``delta``), so recording
+  never waits for the device.
 * **gauges** — last-write-wins floats (``gauge(name, value)``): queue
   depths, cache sizes, horizons.
 * **histograms** — fixed-boundary bucket counts plus ``sum`` / ``count``
@@ -202,10 +206,25 @@ class MetricsRegistry:
         self.counters: Counter = Counter()
         self.gauges: dict[str, float] = {}
         self.histograms: dict[str, Histogram] = {}
+        self._on_device: dict = {}      # counter name -> 0-d device tensor
 
     # recording -------------------------------------------------- #
     def counter(self, name: str, n: int = 1) -> None:
         self.counters[name] += n
+
+    def device_counter(self, name: str, value) -> None:
+        """Add ``value``, a 0-d integer tensor, to counter ``name``
+        without reading it: it is summed where it lives and folded into
+        the counter when the registry is next read."""
+        held = self._on_device.get(name)
+        self._on_device[name] = value if held is None else held + value
+
+    def _fold(self) -> None:
+        """Read the device-held counts into the counters (waits for the
+        device once)."""
+        for name, held in self._on_device.items():
+            self.counters[name] += int(held)
+        self._on_device.clear()
 
     def gauge(self, name: str, value: float) -> None:
         self.gauges[name] = float(value)
@@ -222,6 +241,7 @@ class MetricsRegistry:
     # snapshot / delta / merge ----------------------------------- #
     def snapshot(self) -> dict:
         """Detached copy of everything (the delta bracket's opening)."""
+        self._fold()
         return {
             "counters": dict(self.counters),
             "gauges": dict(self.gauges),
@@ -233,6 +253,7 @@ class MetricsRegistry:
         """What moved since ``snap`` — same shape as :meth:`snapshot`,
         sparse (untouched metrics are omitted).  Picklable and
         JSON-serializable: this is what crosses process boundaries."""
+        self._fold()
         counters = {
             k: v - snap["counters"].get(k, 0)
             for k, v in self.counters.items()
@@ -272,6 +293,7 @@ class MetricsRegistry:
     def restore(self, snap: dict) -> None:
         """Reset the registry to a prior :meth:`snapshot` (test
         isolation: the autouse fixture brackets every test)."""
+        self._on_device.clear()
         self.counters.clear()
         self.counters.update(snap["counters"])
         self.gauges.clear()
@@ -280,6 +302,7 @@ class MetricsRegistry:
                            for k, d in snap["histograms"].items()}
 
     def reset(self) -> None:
+        self._on_device.clear()
         self.counters.clear()
         self.gauges.clear()
         self.histograms.clear()

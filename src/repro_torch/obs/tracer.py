@@ -16,7 +16,13 @@ The **module-level** entry points are what instrumented code calls:
 * :func:`current_tracer` / :func:`span_attr` — attach attributes
   (e.g. counter deltas) to the innermost open span;
 * :func:`activate` — install a tracer for a ``with`` region (the
-  scheduler and service loops activate around one run).
+  scheduler and service loops activate around one run);
+* :func:`device_span` — ``with device_span("repro_torch.moe"):`` for
+  code that launches device work: a ``torch.profiler.record_function``
+  range while a torch profiler records, so the range and the kernels
+  launched under it share the profiler's clock in its trace; the same
+  shared no-op otherwise.  It reads no clock, records no CUDA event and
+  never waits for the device.
 
 Tracing is **provably inert**: spans only read clocks and append to a
 list, never feed back into control flow — makespans and service
@@ -31,6 +37,7 @@ one Chrome trace shows worker tracks next to the main process.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 from contextlib import contextmanager
@@ -41,6 +48,8 @@ __all__ = [
     "Tracer",
     "activate",
     "current_tracer",
+    "device_span",
+    "profiler_recording",
     "span_attr",
     "trace_span",
     "tracing_active",
@@ -197,6 +206,23 @@ def trace_span(name: str, **attrs):
     if tr is None:
         return _NULL_SPAN
     return tr.span(name, **attrs)
+
+
+def profiler_recording() -> bool:
+    """Whether a torch profiler records on this thread (False where
+    torch was never imported: nothing can record then)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+def device_span(name: str):
+    """A span of device work named ``repro_torch.<layer>[.<part>]``: a
+    ``record_function`` range while a torch profiler records, else the
+    shared no-op (one check, nothing allocated)."""
+    if not profiler_recording():
+        return _NULL_SPAN
+    from torch.profiler import record_function
+    return record_function(name)
 
 
 def span_attr(**kv) -> None:

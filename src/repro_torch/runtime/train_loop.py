@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.convert import param_tree, tree_leaves, tree_map
 from repro_torch.data import DataConfig, Prefetcher, SyntheticTokens
 from repro_torch.models import LM
+from repro_torch.obs.tracer import device_span
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine
 
 from .fault import FailureInjector, StepTimer, StragglerMonitor
@@ -90,26 +91,32 @@ class Trainer:
         own parameters; ``batch`` holds ``tokens`` and ``labels`` on the
         model's device.  ``mark(name)``, if given, is called as the
         forward, backward and AdamW phases start ("forward", "backward",
-        "adamw") and at the end ("end"), for timing.  Returns (params,
-        opt_state, metrics) with the ``loss`` and ``grad_norm`` metrics.
+        "adamw") and at the end ("end"), for timing; while a torch profiler
+        records, the three phases run under the device spans
+        ``repro_torch.train.forward`` / ``.backward`` / ``.adamw``.
+        Returns (params, opt_state, metrics) with the ``loss`` and
+        ``grad_norm`` metrics.
         """
         mark = mark or (lambda name: None)
         leaves = tree_leaves(params)
         for p in leaves:
             p.grad = None                # no stale grads live during the forward
         mark("forward")
-        loss = self.model.loss(batch)
+        with device_span("repro_torch.train.forward"):
+            loss = self.model.loss(batch)
         mark("backward")
-        loss.backward()
+        with device_span("repro_torch.train.backward"):
+            loss.backward()
         mark("adamw")
-        grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
-                         params)
-        lr_scale = warmup_cosine(opt_state["step"], warmup=10,
-                                 total=max(self.tcfg.steps, 20))
-        params, opt_state, metrics = adamw_update(self.tcfg.opt, params, grads,
-                                                  opt_state, lr_scale)
-        for p in leaves:
-            p.grad = None
+        with device_span("repro_torch.train.adamw"):
+            grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+                             params)
+            lr_scale = warmup_cosine(opt_state["step"], warmup=10,
+                                     total=max(self.tcfg.steps, 20))
+            params, opt_state, metrics = adamw_update(self.tcfg.opt, params, grads,
+                                                      opt_state, lr_scale)
+            for p in leaves:
+                p.grad = None
         mark("end")
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
