@@ -124,6 +124,17 @@ a non-zero exit if it fails:
                chunk-parallel one's two kernels (chains, chunks) from the
                profiler, the forward kernel of the same call, the backward
                of autograd of the plain version, and the bound
+8c. adamw     both AdamW kernels (``kernels/adamw.py``) at the leaf shapes
+               of olmoe_1b_7b at 8 layers (the benchmark's
+               ``olmoe_1b_7b_pp2``: 13 bf16 leaves, 3.56 B parameters,
+               three stacked expert leaves of 1.07 B): the norm pass over
+               every grad leaf within rtol 1e-5 of ``global_norm`` and
+               the same bits on a second call; the update of each leaf
+               (f32 moments and master, clip engaged) bit-equal on param,
+               grad, m, v and master to the eager ATen update given the
+               same scale; times of both beside the eager path's and the
+               bound of their HBM bytes.  Each training phase below runs
+               between a reset and a read of the kernels' launch counts
 9. gradients   full width, 4 layers, f32 (TF32 off): ``LM.loss`` and every
                gradient leaf through the kernels vs the same with
                ``gqa_attention`` routed to the chunked torch scan
@@ -366,7 +377,8 @@ a non-zero exit if it fails:
                ``launches_on_step_paths``, and the dry runs' predicted ones;
                the windowed forward kernels and the windowed tensor-core
                backward as entries ``...@mixtral_8x7b+window``, with their
-               launches on mixtral's windowed paths), and the final
+               launches on mixtral's windowed paths; both AdamW kernels
+               with their launches in each training phase), and the final
                ``{"ok": true, "device": ...}``.
 
 Prefill calls and profile windows are timed after a full garbage
@@ -421,7 +433,10 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.rwkv import wkv_chunked  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine  # noqa: E402
+from repro_torch.kernels import adamw as fused_adamw  # noqa: E402
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,  # noqa: E402
+                               adamw_update_eager, global_norm, warmup_cosine)
+from repro_torch.optim.adamw import _bias_and_lr, _clip_scale, _update_eager  # noqa: E402
 from repro_torch.runtime import (FailureInjector, Request, ServeLoop, Trainer,  # noqa: E402
                                  TrainerConfig, pipeline_apply, rescale_plan,
                                  run_with_restarts, stack_stage_params)
@@ -2469,6 +2484,130 @@ def model_grads(model, batch) -> tuple[float, dict]:
     return float(loss.detach()), grads
 
 
+# phase 8c: olmoe_1b_7b at 8 of 16 layers, the benchmark's training cell
+ADAMW_LAYERS = 8
+ADAMW_REPS = {"kernel": 5, "plain": 2}
+ADAMW_NORM_RTOL = 1e-5
+# the kernels' launch counts over each training phase, by phase
+ADAMW_LAUNCHES: dict = {}
+
+
+def counting_adamw(name: str, phase, *args, **kwargs):
+    """Run a training phase between a reset and a read of the AdamW
+    kernels' launch counts, kept under ``name``: its steps on the card
+    launch a sum of squares and at least one update each."""
+    fused_adamw.reset_launch_counts()
+    out = phase(*args, **kwargs)
+    got = dict(fused_adamw.update.launches)
+    ADAMW_LAUNCHES[name] = got
+    check(got["sumsq"] > 0 and got["update"] >= got["sumsq"],
+          f"{name}: AdamW kernel launches {got}, want a sum of squares and updates each step")
+    return out
+
+
+def adamw_bytes(n: int, param_size: int, moment_size: int, clipped: bool) -> int:
+    """HBM bytes of one leaf's fused update: the grad read (and written
+    back clipped unless the scale is 1), m and v read and written, the
+    f32 master read and written, the param written."""
+    return n * (param_size * (3 if clipped else 2) + 4 * moment_size + 8)
+
+
+def phase_adamw() -> dict:
+    """Phase 8c: both AdamW kernels at olmoe_1b_7b's training leaves (8
+    layers), against the eager path, with times and bounds."""
+    cfg = replace(get_config("olmoe_1b_7b"), n_layers=ADAMW_LAYERS)
+    shapes = {name: tuple(t.shape) for name, t in flatten_tree(param_tree(
+        LM(cfg, param_dtype=torch.bfloat16, device="meta"))).items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    draw = lambda shape, scale=1.0, dtype=torch.float32: (  # noqa: E731
+        scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    # the norm pass over every grad leaf at once, as a step runs it
+    grads = [draw(shape, dtype=torch.bfloat16) for shape in shapes.values()]
+    sums = fused_adamw.grad_sumsq(grads)
+    again = fused_adamw.grad_sumsq(grads)
+    norm, want = torch.sqrt(sums[-1]), global_norm(grads)
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    norm_row = dict(rel_err=float(abs(norm.double() - want.double()) / want.double()),
+                    tol_rel=ADAMW_NORM_RTOL, repeat_bits_equal=bool(torch.equal(
+                        sums.view(torch.int32), again.view(torch.int32))),
+                    ms=time_ms(lambda: fused_adamw.grad_sumsq(grads), ADAMW_REPS["kernel"]),
+                    plain_ms=time_ms(lambda: global_norm(grads), ADAMW_REPS["plain"]),
+                    bound_ms=grad_bytes / PEAK_BYTES * 1e3, grad_gb=grad_bytes / 1e9)
+    del grads, sums, again
+    free()
+    # each leaf's update beside the eager one, given the norm's clip scale
+    # and step 3's bias corrections at the warmup-cosine scale 0.7
+    opt = AdamWConfig()
+    scale = _clip_scale(norm, opt.grad_clip)
+    bc1, bc2, lr = _bias_and_lr(opt, torch.tensor(3, dtype=torch.int32, device="cuda"), 0.7)
+    consts = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, weight_decay=opt.weight_decay)
+    leaves, unequal = {}, []
+    for name, shape in shapes.items():
+        master = draw(shape, 0.02)
+        mine = (master.bfloat16(), draw(shape, dtype=torch.bfloat16), draw(shape, 1e-3),
+                draw(shape, 1e-3).square_(), master)
+        plain = tuple(t.clone() for t in mine)
+        fused_adamw.update(*mine, scale, bc1, bc2, lr, **consts)
+        plain[1].mul_(scale.to(plain[1].dtype))
+        _update_eager(opt, [plain], bc1, bc2, lr)
+        torch.cuda.synchronize()
+        unequal += [f"{name}.{part}" for part, a, b in zip(
+            ("param", "grad", "m", "v", "master"), mine, plain)
+            if not torch.equal(a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+                               b.view(torch.int16 if b.element_size() == 2 else torch.int32))]
+
+        def plain_update():
+            plain[1].mul_(scale.to(plain[1].dtype))
+            _update_eager(opt, [plain], bc1, bc2, lr)
+        n = master.numel()
+        leaves[name] = dict(
+            shape=list(shape), elements=n,
+            ms=time_ms(lambda: fused_adamw.update(*mine, scale, bc1, bc2, lr, **consts),
+                       ADAMW_REPS["kernel"]),
+            plain_ms=time_ms(plain_update, ADAMW_REPS["plain"]),
+            bound_ms=adamw_bytes(n, 2, 4, True) / PEAK_BYTES * 1e3)
+        del master, mine, plain
+        free()
+    total = lambda key: sum(r[key] for r in leaves.values())  # noqa: E731
+    update_row = dict(ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                      params=total("elements"), bytes_per_param=adamw_bytes(1, 2, 4, True),
+                      clip_scale=float(scale), unequal=unequal, leaves=leaves)
+    row = dict(arch=cfg.name, layers=cfg.n_layers, leaves=len(shapes),
+               params=update_row["params"], norm=norm_row, update=update_row)
+    emit("adamw", **row)
+    check(norm_row["rel_err"] <= ADAMW_NORM_RTOL and norm_row["repeat_bits_equal"],
+          f"the AdamW norm pass: {norm_row}")
+    check(float(scale) < 1.0, f"the clip is not engaged: scale {float(scale)}")
+    check(not unequal, f"the fused AdamW update differs from the eager one in {unequal}")
+    return row
+
+
+def adamw_rows(row: dict) -> list:
+    """The kernels-line entries of both AdamW kernels: phase 8c's checks
+    and times, and their launches over each training phase."""
+    where = "each training phase, its launch counts reset before it and read after it"
+    common = dict(route="cuda", source="src/repro_torch/kernels/csrc/adamw.cu",
+                  replaces="none: the eager AdamW of src/repro_torch/optim/adamw.py "
+                           "(JAX's AdamW is jnp that XLA fuses)",
+                  launches_counted_on=where, bound_by="hbm",
+                  shape=f"{row['arch']} at {row['layers']} layers: {row['leaves']} bf16 leaves, "
+                        f"{row['params']} parameters", dtype="bf16 params and grads, f32 state")
+    norm, upd = row["norm"], row["update"]
+    return [
+        {"name": "adamw_sumsq", **common,
+         "kernels_a_call": ["sumsq_kernel", "sumsq_finish_kernel"],
+         "launches": {phase: 2 * n["sumsq"] for phase, n in ADAMW_LAUNCHES.items()},
+         "rel_err": norm["rel_err"], "tol_rel": norm["tol_rel"],
+         "repeat_bits_equal": norm["repeat_bits_equal"], "ms": norm["ms"],
+         "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
+         "bound_share": norm["bound_ms"] / norm["ms"]},
+        {"name": "adamw_update", **common, "kernels_a_call": ["adamw_update_kernel"],
+         "launches": {phase: n["update"] for phase, n in ADAMW_LAUNCHES.items()},
+         "bit_equal_to_eager": not upd["unequal"], "ms": upd["ms"],
+         "plain_ms": upd["plain_ms"], "bound_ms": upd["bound_ms"],
+         "bound_share": upd["bound_ms"] / upd["ms"], "bytes_per_param": upd["bytes_per_param"]}]
+
+
 def phase_gradients(cfg_full, **cut) -> int:
     """``LM.loss`` and every gradient leaf through the kernels (CUDA-core
     forward, backward kernel) vs the same with self-attention routed to the
@@ -3271,7 +3410,7 @@ def phase_steps_decode(model, mesh) -> dict:
 def plain_train_step(model, params, opt_state, batch, grad_accum: int = 1):
     """The bundles' train step on plain tensors (the JAX builder's step):
     ``grad_accum`` microbatches summed in a bf16 accumulator and divided,
-    AdamW at the default ``warmup_cosine``."""
+    the eager AdamW at the default ``warmup_cosine``."""
     leaves = tree_leaves(params)
     if grad_accum == 1:
         loss = model.loss(batch)
@@ -3288,7 +3427,8 @@ def plain_train_step(model, params, opt_state, batch, grad_accum: int = 1):
         grads = [g / grad_accum for g in gsum]
         loss = loss / grad_accum
     by_param = {id(p): g for p, g in zip(leaves, grads)}
-    params, opt_state, metrics = adamw_update(
+    # the eager AdamW: the plain version of the kernels the bundles run
+    params, opt_state, metrics = adamw_update_eager(
         AdamWConfig(), params, tree_map(lambda p: by_param[id(p)], params), opt_state,
         warmup_cosine(opt_state["step"]))
     metrics["loss"] = loss.detach()
@@ -4316,6 +4456,8 @@ def main() -> int:
     # phases 2 and 8's windowed calls, after the WKV phases' profiler windows
     window_timed, window_checks = phase_kernel_window()
     bwd_window_timed, bwd_window_checks = phase_backward_window()
+    free()
+    adamw = phase_adamw()
 
     cfg = get_config("llama3_8b")
     model = LM(cfg, seed=SEED, device="cuda")        # bf16, full depth
@@ -4342,11 +4484,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_rwkv_gradients(rwkv_cfg)
     torch.cuda.empty_cache()
-    train = phase_train(cfg)
+    train = counting_adamw("train", phase_train, cfg)
     torch.cuda.empty_cache()
-    rwkv_train = phase_rwkv_train(rwkv_cfg)
+    rwkv_train = counting_adamw("rwkv_train", phase_rwkv_train, rwkv_cfg)
     torch.cuda.empty_cache()
-    trainer = phase_trainer()
+    trainer = counting_adamw("trainer", phase_trainer)
     torch.cuda.empty_cache()
 
     olmoe_cfg = get_config("olmoe_1b_7b")
@@ -4356,7 +4498,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     olmoe_launches = phase_main_path("olmoe_1b_7b")
     torch.cuda.empty_cache()
-    olmoe_train = phase_olmoe_train(olmoe_cfg)
+    olmoe_train = counting_adamw("olmoe_train", phase_olmoe_train, olmoe_cfg)
     torch.cuda.empty_cache()
     phase_consistency(olmoe_cfg, capacity_factor=16.0)
     torch.cuda.empty_cache()
@@ -4364,7 +4506,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mixtral = phase_mixtral(get_config("mixtral_8x7b"))
     free()
-    mixtral_window = phase_mixtral_window(get_config("mixtral_8x7b"))
+    mixtral_window = counting_adamw("mixtral_window", phase_mixtral_window,
+                                    get_config("mixtral_8x7b"))
     free()
 
     jamba_cfg = get_config("jamba_15_large")
@@ -4384,7 +4527,7 @@ def main() -> int:
                       "wgmma/causal": seamless_cfg.n_layers}
     seamless_launches = phase_main_path("seamless_m4t_v2", masks=seamless_masks)
     free()
-    seamless_train = phase_seamless_train(seamless_cfg)
+    seamless_train = counting_adamw("seamless_train", phase_seamless_train, seamless_cfg)
     free()
     phase_gradients(seamless_cfg, **SEAMLESS_F32_CUT)
     free()
@@ -4395,13 +4538,15 @@ def main() -> int:
     steps_decode = phase_steps_decode(model, mesh)
     del model
     free()
-    steps_train = phase_steps_train(cfg, mesh, train["remat"]["full"]["step_s"])
+    steps_train = counting_adamw("steps_train", phase_steps_train, cfg, mesh,
+                                 train["remat"]["full"]["step_s"])
     free()
-    steps_rwkv = phase_steps_rwkv_train(rwkv_cfg, mesh, rwkv_train["remat"]["full"]["step_s"])
+    steps_rwkv = counting_adamw("steps_rwkv_train", phase_steps_rwkv_train, rwkv_cfg, mesh,
+                                rwkv_train["remat"]["full"]["step_s"])
     free()
-    jamba_train = phase_jamba_train(jamba_cfg)
+    jamba_train = counting_adamw("jamba_train", phase_jamba_train, jamba_cfg)
     free()
-    vision_train = phase_vision_train(vision_cfg)
+    vision_train = counting_adamw("vision_train", phase_vision_train, vision_cfg)
     free()
     # the dry run against phases 20-22, both --production flags, GPipe
     dry_steps = phase_dryrun_steps(cfg, steps_prefill, steps_decode, steps_train)
@@ -4524,6 +4669,7 @@ def main() -> int:
         "steps_rwkv_train (rwkv6_1b6, one step, remat full)": steps_rwkv["launches"][-1]["chunked"]}
     entry("wkv_bhsd_bwd[backward_chunked]")["launches_on_step_paths"] = {
         "steps_rwkv_train (one step)": steps_rwkv["launches"][-1]["backward_chunked"]}
+    kernels += adamw_rows(adamw)
     emit("done", seconds=time.perf_counter() - t_start, gc_collections=len(GC_PAUSES),
          gc_full_collections=sum(g == 2 for g, _ in GC_PAUSES),
          gc_seconds=sum(p for _, p in GC_PAUSES),

@@ -33,6 +33,7 @@ ENTRY_POINTS = {
                         "repro_flash_attention_bwd", "repro_flash_attention_bwd_wgmma"),
     "rwkv_wkv": ("repro_wkv_fwd", "repro_wkv_fwd_chunked", "repro_wkv_bwd",
                  "repro_wkv_bwd_chunked"),
+    "adamw": ("repro_adamw_sumsq", "repro_adamw_update"),
 }
 SOURCES = tuple(ENTRY_POINTS)
 

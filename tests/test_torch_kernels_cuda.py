@@ -26,6 +26,11 @@ held against autograd of the plain version at the forward's limits (see
 updates it one step at a time; the chunked one sums 16 steps' updates
 from bf16 parts of k*E that keep f32 precision, which
 tests/test_torch_wkv_numerics.py rehearses at the same limit.
+The fused AdamW update is held to the eager path (the ATen ops of
+``optim/adamw.py``) bit for bit, given the same clip scale: both round
+every operation to f32 in the same order.  Its norm pass sums in another
+order than ``global_norm``: rtol 1e-5 (f32 sums of up to ~10^7 squares
+each, by chunk), and the same bits on every run.
 """
 import importlib
 
@@ -33,12 +38,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.convert import tree_leaves
+from repro_torch.kernels import adamw as adamw_kernels
 from repro_torch.kernels import (flash_attention, flash_attention_bhsd,
                                  flash_attention_bhsd_plain, rwkv_wkv, wkv_bhsd,
                                  wkv_bhsd_plain)
 from repro_torch.kernels.flash_attention import backward_variant, kernel_variant
 from repro_torch.models import attention as attention_mod
 from repro_torch.models.moe import moe_ffn, moe_route
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
+from repro_torch.optim.adamw import _bias_and_lr, _clip_scale, _update_eager
 
 # the modules: the package's ``flash_attention`` and ``rwkv_wkv`` are the
 # model-layout functions
@@ -945,3 +954,180 @@ def test_moe_ffn_on_the_card_matches_the_cpu_and_is_bit_equal_on_two_calls(card,
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
     assert torch.equal(moe_route(pc, x.to(card), top_k=k).sel_tok.cpu(),
                        moe_route(p, x, top_k=k).sel_tok)
+
+
+# ---------------------------------------------------------------- AdamW
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(_INT_VIEW[t.dtype])
+
+
+def _adamw_tree(sizes, dtype, seed, scale=1.0):
+    """A dict of leaves on the card, one of each shape in ``sizes``; a
+    shape given as ("offset", n) is a contiguous view one element into a
+    buffer, off the 16-byte alignment, so the kernels take their scalar
+    paths."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for i, size in enumerate(sizes):
+        offset = isinstance(size, tuple) and size[0] == "offset"
+        shape = (size[1],) if offset else size if isinstance(size, tuple) else (size,)
+        draw = (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+        if offset:
+            buf = torch.empty(draw.numel() + 1, dtype=dtype, device="cuda")
+            buf[1:].copy_(draw)
+            draw = buf[1:]
+        out[f"leaf{i}"] = draw
+    return out
+
+
+def _clone(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+def _eager_step(cfg, params, grads, state, scale, lr_scale):
+    """The eager path's step given the clip scale: the clip multiply, the
+    step count, the bias corrections and the ATen update."""
+    with torch.no_grad():
+        for g in tree_leaves(grads):
+            g.mul_(scale.to(g.dtype))
+        state["step"] += 1
+        bc1, bc2, lr = _bias_and_lr(cfg, state["step"], lr_scale)
+        _update_eager(cfg, list(zip(*(tree_leaves(t) for t in (
+            params, grads, state["m"], state["v"], state["master"])))), bc1, bc2, lr)
+
+
+def _run_against_eager(sizes, param_dtype, moment_dtype, grad_scale):
+    """Three fused steps (lr_scale 0, as the warmup's first, then 0.5 and
+    0.7) beside the eager path given each step's fused norm; every state,
+    param and clipped grad bit-equal.  Returns the three norms."""
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.1, grad_clip=1.0)
+    params = _adamw_tree(sizes, param_dtype, 0)
+    ref_params = _clone(params)
+    state = adamw_init(params, moment_dtype)
+    ref_state = adamw_init(ref_params, moment_dtype)
+    norms = []
+    for step, lr_scale in enumerate((0.0, 0.5, 0.7)):
+        grads = _adamw_tree(sizes, param_dtype, 1 + step, grad_scale)
+        ref_grads = _clone(grads)
+        assert all(adamw_kernels.takes(*leaf) for leaf in zip(*(tree_leaves(t) for t in (
+            params, grads, state["m"], state["v"], state["master"]))))
+        adamw_kernels.reset_launch_counts()
+        _, _, metrics = adamw_update(cfg, params, grads, state, lr_scale)
+        assert adamw_kernels.update.launches == {"sumsq": 1, "update": len(sizes)}
+        norm = metrics["grad_norm"]
+        _eager_step(cfg, ref_params, ref_grads, ref_state, _clip_scale(norm, cfg.grad_clip),
+                    lr_scale)
+        torch.cuda.synchronize()
+        for name in params:
+            for what, a, b in (("param", params, ref_params), ("grad", grads, ref_grads),
+                               ("m", state["m"], ref_state["m"]),
+                               ("v", state["v"], ref_state["v"]),
+                               ("master", state["master"], ref_state["master"])):
+                assert a[name].dtype == b[name].dtype
+                assert torch.equal(_bits(a[name]), _bits(b[name])), (step, what, name)
+        assert int(state["step"]) == int(ref_state["step"]) == step + 1
+        norms.append(float(norm))
+    return norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("clipped", [True, False])
+def test_adamw_fused_update_is_bit_equal_to_the_eager_path(card, param_dtype, moment_dtype,
+                                                          clipped):
+    sizes = [1, 3, 4097, (64, 129), ("offset", 4097)]
+    norms = _run_against_eager(sizes, param_dtype, moment_dtype, 10.0 if clipped else 1e-4)
+    assert all((n > 1.0) == clipped for n in norms)
+
+
+@pytest.mark.cuda
+def test_adamw_fused_update_past_two_gib_of_one_leaf(card):
+    """An f32 leaf of more than 2**31 bytes (and a ragged end): the
+    kernels' offsets are 64-bit."""
+    n = 545_000_011
+    assert n * 4 > 2 ** 31
+    norms = _run_against_eager([n, 3], torch.float32, "float32", 1.0)
+    assert all(x > 1.0 for x in norms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_adamw_norm_pass_matches_global_norm_and_repeats_its_bits(card, dtype):
+    sizes = [1, 3, 4097, (1000, 1000), 3 * adamw_kernels.CHUNK + 5, ("offset", 70001),
+             (8, 64, 2048, 16)]
+    grads = _adamw_tree(sizes, dtype, 7, 0.5)
+    sums = adamw_kernels.grad_sumsq(list(grads.values()))
+    assert sums.shape == (len(sizes) + 1,) and sums.dtype == torch.float32
+    for i, g in enumerate(grads.values()):
+        want = torch.sum(torch.square(g.double()))
+        torch.testing.assert_close(sums[i].double(), want, rtol=1e-5, atol=0)
+    norm = torch.sqrt(sums[-1])
+    torch.testing.assert_close(norm, global_norm(grads), rtol=1e-5, atol=0)
+    for _ in range(3):
+        again = adamw_kernels.grad_sumsq(list(grads.values()))
+        assert torch.equal(_bits(again), _bits(sums))
+
+
+@pytest.mark.cuda
+def test_adamw_dtensor_leaves_on_the_card_take_the_kernels(card):
+    """DTensor leaves on a CUDA mesh of one: the kernels on their local
+    shards, the bits of the same step on plain leaves, a replicated norm."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.1, grad_clip=1.0)
+    sizes = [3, 4097, (64, 129)]
+    assert not dist.is_initialized()
+    try:
+        mesh = make_local_mesh(device="cuda")
+        rows = [Shard(0), Replicate()]
+        place = lambda tree: {k: distribute_tensor(v.clone(), mesh, rows)  # noqa: E731
+                              for k, v in tree.items()}
+        params = _adamw_tree(sizes, torch.bfloat16, 0)
+        dparams = place(params)
+        state, dstate = adamw_init(params), adamw_init(dparams)
+        for step, lr_scale in enumerate((0.0, 0.5, 0.7)):
+            grads = _adamw_tree(sizes, torch.bfloat16, 1 + step, 10.0)
+            dgrads = place(grads)
+            _, _, metrics = adamw_update(cfg, params, grads, state, lr_scale)
+            adamw_kernels.reset_launch_counts()
+            _, _, dmetrics = adamw_update(cfg, dparams, dgrads, dstate, lr_scale)
+            assert adamw_kernels.update.launches == {"sumsq": 1, "update": len(sizes)}
+            norm = dmetrics["grad_norm"]
+            assert isinstance(norm, DTensor) and all(pl.is_replicate() for pl in norm.placements)
+            assert torch.equal(norm.to_local(), metrics["grad_norm"])
+            for name in params:
+                for a, b in ((dparams, params), (dgrads, grads), (dstate["m"], state["m"]),
+                             (dstate["v"], state["v"]), (dstate["master"], state["master"])):
+                    assert torch.equal(_bits(a[name].to_local()), _bits(b[name])), (step, name)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_trainer_on_the_card_takes_the_fused_path(card, tmp_path):
+    """``Trainer.step_fn`` on the card: every parameter through the fused
+    kernels (the profiled counters), none through the eager path."""
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.obs import METRICS
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    trainer = Trainer(get_smoke_config("olmoe_1b_7b"),
+                      ShapeConfig("tiny_train", seq_len=16, global_batch=4, kind="train"),
+                      TrainerConfig(steps=3, ckpt_dir=str(tmp_path / "ckpt")),
+                      param_dtype=torch.bfloat16, device="cuda")
+    params, state, _ = trainer.init_or_restore()
+    n = sum(p.numel() for p in tree_leaves(params))
+    before = METRICS.snapshot()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        for step in range(2):
+            params, state, met = trainer.step_fn(params, state,
+                                                 trainer.batch(trainer.data.batch_at(step)))
+    moved = METRICS.delta(before).get("counters", {})
+    assert moved.get("optim.fused_params") == 2 * n and "optim.eager_params" not in moved
+    assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])

@@ -10,7 +10,7 @@ of phases that failed.
     python3 tools/chip_phases.py steps_prefill steps_train
     python3 tools/chip_phases.py vision_train --vision-cut 2 2
 
-Phases: ``steps_prefill``, ``steps_decode`` (after ``steps_prefill``, on
+Phases: ``adamw`` (phase 8c), ``steps_prefill``, ``steps_decode`` (after ``steps_prefill``, on
 its model), ``steps_train``, ``steps_rwkv_train``, ``jamba_train``,
 ``vision_train``, ``dryrun_steps`` (after the first three, whose rows it
 reads), ``production_dryrun``, ``pipeline``, and the sliding window's:
@@ -60,7 +60,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 import torch  # noqa: E402
 
-PHASES = ("steps_prefill", "steps_decode", "steps_train", "steps_rwkv_train",
+PHASES = ("adamw", "steps_prefill", "steps_decode", "steps_train", "steps_rwkv_train",
           "jamba_train", "vision_train", "dryrun_steps", "production_dryrun", "pipeline",
           "kernel_window", "backward_window", "mixtral", "mixtral_window", "train_lm_example",
           "scheduler", "sim", "throughput", "flash_ab")
@@ -208,7 +208,8 @@ def main(argv=None) -> int:
     def throughput():
         rows = sim()
         cs.phase_throughput(smi, rows["llama3_8b"])
-    runs = {"steps_prefill": prefill,
+    runs = {"adamw": cs.phase_adamw,
+            "steps_prefill": prefill,
             "steps_decode": decode,
             "steps_train": train,
             "steps_rwkv_train": lambda: cs.phase_steps_rwkv_train(rwkv, mesh,
